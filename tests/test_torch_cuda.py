@@ -1,0 +1,106 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: they skip where torch.cuda.is_available() is false. This
+file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+The kernels use the plain versions' order of operations with explicit
+round-to-nearest arithmetic, so on the same inputs the two agree bit for
+bit; the asserts hold them to exactly that.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import bench
+import fwav_tpu_torch as port
+from fwav_tpu_torch.ops import kernels
+from fwav_tpu_torch.ops.affine import affine_stats
+from fwav_tpu_torch.ops.search import domain_thresh, domain_weights
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _k1(dev, seed, M, D, N, objective):
+    rng = np.random.default_rng(seed)
+    r = (rng.standard_normal((M, N)) * 0.5).astype(np.float32)
+    bank = (rng.standard_normal((D, N)) * 0.1).astype(np.float32)
+    bank[::41] = bank[::41, :1]
+    r_c = torch.from_numpy(r - r.mean(1, keepdims=True)).to(dev)
+    b = torch.from_numpy(bank).to(dev)
+    mean, denom = affine_stats(b)
+    valid = torch.from_numpy(rng.random(D) > 0.05).to(dev)
+    return (r_c, b.T.contiguous(), domain_weights(mean, denom, N, objective),
+            valid, domain_thresh(denom, objective, 2.0), 2.0)
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("M,D,N", [(1000, 3000, 4), (50, 20000, 4), (333, 1111, 7)])
+def test_search_scan_kernel_equals_plain(dev, objective, M, D, N):
+    """Including a shape that splits the domains over blocks (few ranges,
+    a large bank) and a range size other than 4."""
+    args = _k1(dev, M + D, M, D, N, objective)
+    before = kernels.LAUNCHES["search_scan"]
+    s_k, i_k = kernels.search_scan(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["search_scan"] == before + 1
+    s_p, i_p = kernels.search_scan_ref(*args)
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(s_k, s_p)
+
+
+def test_search_scan_kernel_all_invalid(dev):
+    r_c, bankT, w, valid, t, c = _k1(dev, 5, 300, 700, 4, "balanced")
+    s, i = kernels.search_scan(r_c, bankT, w, torch.zeros_like(valid))
+    assert torch.isneginf(s).all() and not i.any()
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+def test_refine_window_kernel_equals_plain(dev, objective):
+    rng = np.random.default_rng(7)
+    stride, B, n, dc, M = 128, 256, 4, 40, 3000
+    sig = (rng.standard_normal(dc * stride + n * B + 4096) * 0.2).astype(np.float32)
+    means = np.convolve(sig, np.ones(B) / B, mode="valid").astype(np.float32)
+    ext = np.zeros(stride + len(means) + 1024, np.float32)
+    ext[stride : stride + len(means)] = means
+    lobes = rng.integers(-1, dc + 2, M).astype(np.int32)  # -1 and past-the-end lobes
+    ranges = (rng.standard_normal((M, n)) * 1.5).astype(np.float32)
+    args = (torch.from_numpy(ext).to(dev), torch.from_numpy(lobes).to(dev),
+            torch.from_numpy(ranges).to(dev), dc * stride - 700, stride, B,
+            objective, 2.0)
+    s_k, i_k = kernels.refine_window(*args)
+    s_p, i_p = kernels.refine_window_ref(*args)
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(s_k, s_p)
+
+
+def test_kernel_wrappers_check_their_inputs(dev):
+    r_c, bankT, w, valid, t, c = _k1(dev, 9, 64, 512, 4, "balanced")
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.search_scan(r_c, bankT.T.contiguous().T, w, valid)
+    with pytest.raises(ValueError, match="is on cpu"):
+        kernels.search_scan(r_c, bankT, w.cpu(), valid)
+    with pytest.raises(TypeError, match="dtype"):
+        kernels.search_scan(r_c, bankT, w.double(), valid)
+
+
+def test_slice_on_the_card_matches_the_host():
+    """The 2 s slice on the card launches both kernels and gives the host
+    run's records (the plain versions are the kernels' arithmetic)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sig = bench.make_signal(2.0)
+    kernels.reset_launch_counts()
+    gpu = port.compress_audio_arrays(sig, 44100, 2, device="cuda")
+    assert kernels.LAUNCHES == {"search_scan": 1, "refine_window": 1}
+    cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
+    np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
