@@ -7,13 +7,16 @@ never jax or fwav_tpu. Entry points take an explicit `device`: "cuda" by
 default; "cpu" runs the kernels' plain PyTorch versions.
 """
 
-from .config import FWAV_VERSION, DecoderConfig, EncoderConfig
+from .config import DAMPED_DECODE_DAMPING, FWAV_VERSION, DecoderConfig, EncoderConfig
 from .io import (
     MATCH_DTYPE,
     load_compressed,
     load_compressed_arrays,
+    load_compressed_compact,
+    parse_decode_hint,
     read_wav_mono,
     save_compressed,
+    save_compressed_compact,
     write_wav,
 )
 from .models import compress_audio, compress_audio_arrays, decompress_audio, prune_bank
@@ -22,8 +25,9 @@ from .utils import compute_snr
 __version__ = "0.1.0"
 
 __all__ = [
-    "FWAV_VERSION", "DecoderConfig", "EncoderConfig", "MATCH_DTYPE",
-    "compress_audio", "compress_audio_arrays", "compute_snr",
+    "DAMPED_DECODE_DAMPING", "FWAV_VERSION", "DecoderConfig", "EncoderConfig",
+    "MATCH_DTYPE", "compress_audio", "compress_audio_arrays", "compute_snr",
     "decompress_audio", "load_compressed", "load_compressed_arrays",
-    "prune_bank", "read_wav_mono", "save_compressed", "write_wav",
+    "load_compressed_compact", "parse_decode_hint", "prune_bank",
+    "read_wav_mono", "save_compressed", "save_compressed_compact", "write_wav",
 ]

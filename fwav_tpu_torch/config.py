@@ -16,6 +16,11 @@ FWAV_VERSION = 1
 #: Candidate domains per range in the embedding-shortlist search path.
 TOP_K = 32
 
+#: The decoder s_damping the damped encode profile is tuned for, stored as
+#: the v2 container's decode hint (FLAG_DECODE_HINT) so that a hint-aware
+#: decode realizes the profile's quality.
+DAMPED_DECODE_DAMPING = 0.25
+
 #: Fields of the JAX package's EncoderConfig that have no meaning here.
 _REFERENCE_ONLY_FIELDS = ("use_pallas", "h2d_chunks")
 

@@ -1,3 +1,4 @@
+from .compact import load_compressed_compact, parse_decode_hint, save_compressed_compact
 from .container import (
     MATCH_DTYPE,
     load_compressed,
@@ -8,5 +9,6 @@ from .wav import read_wav, read_wav_mono, write_wav
 
 __all__ = [
     "MATCH_DTYPE", "load_compressed", "load_compressed_arrays",
-    "read_wav", "read_wav_mono", "save_compressed", "write_wav",
+    "load_compressed_compact", "parse_decode_hint", "read_wav",
+    "read_wav_mono", "save_compressed", "save_compressed_compact", "write_wav",
 ]

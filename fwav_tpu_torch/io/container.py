@@ -21,7 +21,8 @@ Layout (little-endian):
                                      (domain_idx i32 [-1 = silent sentinel],
                                       s f32, o f32, sym u8, err f32)
 
-The compact v2 and multichannel v3 layouts are not ported yet.
+The compact v2 layout is io/compact.py; load_compressed_arrays reads both.
+The multichannel v3 layout is not ported yet.
 """
 
 from __future__ import annotations
@@ -141,17 +142,22 @@ def save_compressed(
 
 
 def load_compressed_arrays(filepath, verify_checksum: bool = True):
-    """Load a v1 .fwav: (records, domains, n_ranges, range_size, framerate,
-    sampwidth, tile_size, domain_step, energy_threshold, original_len).
-    Uses the native parser when its library builds."""
+    """Load a v1 or compact v2 .fwav: (records, domains, n_ranges,
+    range_size, framerate, sampwidth, tile_size, domain_step,
+    energy_threshold, original_len). v1 uses the native parser when its
+    library builds; v2 goes to io.compact.load_compressed_compact."""
     with open(filepath, "rb") as f:
         head = f.read(5)
     if len(head) < 5 or head[:4] != MAGIC:
         raise ValueError("Not a FWAV file")
-    if head[4] in (2, 3):
+    if head[4] == 2:
+        from .compact import load_compressed_compact
+
+        return load_compressed_compact(filepath, verify_checksum=verify_checksum)
+    if head[4] == 3:
         raise NotImplementedError(
-            f"FWAV v{head[4]} (compact/multichannel) is not ported yet "
-            "(ROADMAP.md: compact v2/v3)"
+            "FWAV v3 (multichannel) is not ported yet (ROADMAP.md: packed "
+            "batch and multichannel)"
         )
 
     from . import native

@@ -1,6 +1,7 @@
 """ctypes binding of the native .fwav runtime (the entry points of
-fwav_tpu/io/native.py that the single-shot path uses: write, read, refit,
-collect).
+fwav_tpu/io/native.py that the port uses: write, read, refit, collect,
+and the compact container's rans_encode, rans_decode, pack_bits and
+unpack_bits).
 
 The source is the JAX package's fwav_tpu/native/fwavio.cpp, read as a file
 and never imported. It is built with g++ at first use into this package's
@@ -80,6 +81,14 @@ def _load():
         cdll.fwav_refit.argtypes = [p, p, p, i64, i64, i64, f32, p, p, p, p]
         cdll.fwav_collect.restype = ctypes.c_int
         cdll.fwav_collect.argtypes = [p, p, p, i64, i64, i64, f32, p]
+        cdll.fwav_rans_encode_pb.restype = i64
+        cdll.fwav_rans_encode_pb.argtypes = [p, i64, p, i64, p, i64, i64]
+        cdll.fwav_rans_decode_pb.restype = i64
+        cdll.fwav_rans_decode_pb.argtypes = [p, i64, i64, p, i64, p, i64]
+        cdll.fwav_pack_bits.restype = i64
+        cdll.fwav_pack_bits.argtypes = [p, i64, i64, p, i64]
+        cdll.fwav_unpack_bits.restype = i64
+        cdll.fwav_unpack_bits.argtypes = [p, i64, i64, i64, p]
         _lib = cdll
         return _lib
 
@@ -178,3 +187,69 @@ def read(path, verify_checksum: bool = True):
         rec, domains, n_ranges, range_size, framerate, sampwidth,
         tile_size, domain_step, float(thr.value), original_len,
     )
+
+
+def rans_encode(symbols: np.ndarray, freqs: np.ndarray, prob_bits: int = 12):
+    """Native lane-interleaved rANS encode, byte-identical to io.rans's
+    numpy coder. The stream bytes, or None when the library is unavailable
+    or refuses the input (the numpy coder then raises the format's
+    error)."""
+    lib = _load()
+    if lib is None:
+        return None
+    from .rans import _lanes_for  # capacity bound must track the spec's lanes
+
+    sym = np.ascontiguousarray(symbols, dtype=np.int64)
+    f = np.ascontiguousarray(freqs, dtype=np.int64)
+    m = len(sym)
+    out = np.empty(4 * _lanes_for(m) + 2 * m + 16, np.uint8)
+    rc = lib.fwav_rans_encode_pb(_ptr(sym), m, _ptr(f), len(f), _ptr(out),
+                                 len(out), int(prob_bits))
+    if rc < 0:
+        return None
+    return out[:rc].tobytes()
+
+
+def rans_decode(buf: bytes, m: int, freqs: np.ndarray, prob_bits: int = 12):
+    """Native rANS decode: the int64 symbols, or None when the library is
+    unavailable. Raises the format's ValueError on a truncated stream."""
+    lib = _load()
+    if lib is None:
+        return None
+    f = np.ascontiguousarray(freqs, dtype=np.int64)
+    data = np.frombuffer(buf, np.uint8)
+    out = np.empty(int(m), np.int64)
+    rc = lib.fwav_rans_decode_pb(_ptr(data), len(data), int(m), _ptr(f),
+                                 len(f), _ptr(out), int(prob_bits))
+    if rc == -7:
+        raise ValueError("Truncated rANS stream")
+    if rc != 0:
+        return None
+    return out
+
+
+def pack_bits(values: np.ndarray, bits: int):
+    """Native LSB-first fixed-width bit pack, the same bytes as
+    io.compact._pack_bits' numpy path; None when unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    v = np.ascontiguousarray(values, dtype=np.int64)
+    m = len(v)
+    out = np.empty((m * bits + 7) // 8, np.uint8)
+    if lib.fwav_pack_bits(_ptr(v), m, int(bits), _ptr(out), len(out)) < 0:
+        return None
+    return out.tobytes()
+
+
+def unpack_bits(buf: bytes, m: int, bits: int):
+    """Native inverse of pack_bits; None when unavailable or on a native
+    error (io.compact._unpack_bits checks the buffer length first)."""
+    lib = _load()
+    if lib is None:
+        return None
+    data = np.frombuffer(buf, np.uint8)
+    out = np.empty(int(m), np.int64)
+    if lib.fwav_unpack_bits(_ptr(data), len(data), int(m), int(bits), _ptr(out)) != 0:
+        return None
+    return out

@@ -10,10 +10,12 @@ from the JAX package, refits s, o, err and the orientation against the
 host-built bank.
 
 The search takes the JAX package's kernel path (EncoderConfig.use_pallas
-there): "exact" is K1 over the whole bank; "coarse" is K1 over the
-stride-subsampled bank, then K2 around each range's lobe. Geometry that
-the JAX kernel path does not cover raises NotImplementedError, naming the
-ROADMAP.md item that will port it.
+there): "exact" is K1 over the whole bank; "coarse" with one lobe is K1
+over the stride-subsampled bank, then K2 around each range's lobe;
+"coarse" with several lobes (the damped profile always takes 4) is K3's
+top-C lobes over the subsampled bank, then K2 once per lobe column.
+Geometry that the JAX kernel path does not cover raises
+NotImplementedError, naming the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..ops.kernels import (
     refine_blocks_ok,
     refine_window,
     search_scan,
+    topc_scan,
 )
 from ..ops.search import domain_thresh, domain_weights
 from ..ops.vad import voiced_detection, voiced_mask
@@ -94,6 +97,14 @@ def _resolve_search(cfg: EncoderConfig, range_size: int, db: int):
     return search_mode, stride
 
 
+def _coarse_topc(cfg: EncoderConfig) -> int:
+    """Coarse lobes per range: the damped objective takes at least 4 (the
+    JAX package's damped profile rule)."""
+    if cfg.objective == "damped":
+        return max(cfg.coarse_topc, 4)
+    return cfg.coarse_topc
+
+
 def _plan_search(cfg: EncoderConfig, mb: int, db: int):
     """The search mode and stride, or NotImplementedError where the JAX
     kernel path would leave the kernels (its gates, mirrored)."""
@@ -111,19 +122,25 @@ def _plan_search(cfg: EncoderConfig, mb: int, db: int):
         )
     if search_mode != "coarse":
         raise ValueError(f"unknown search mode {cfg.search!r}")
-    topc = cfg.coarse_topc
-    if cfg.objective == "damped":
-        topc = max(topc, 4)  # the JAX package's damped profile rule
-    if topc > 1:
-        raise NotImplementedError(
-            f"coarse search with {topc} lobes (objective={cfg.objective!r}) "
-            "needs K3, which is not ported yet (ROADMAP.md: damped profile)"
-        )
+    topc = _coarse_topc(cfg)
     rblk = _pow2_divisor(mb, cfg.range_block)
+    rb_rk = _pow2_divisor(rblk, 512)
+    if topc > 1:
+        # the JAX multi-lobe kernel path runs where the window refine's gate
+        # holds: K3 (or, where its Mosaic block gate fails, the
+        # gain_topk_scan oracle of the same selection rule), then K2 per lobe
+        if db % stride or not refine_blocks_ok(rblk, rb_rk, stride, cfg.domain_step,
+                                               cfg.objective, db):
+            raise NotImplementedError(
+                f"coarse search with {topc} lobes (stride {stride}, bank {db} "
+                f"rows, {mb} ranges) takes the staged refine in the JAX "
+                "package (coarse_refine_search), which is not ported yet "
+                "(ROADMAP.md: staged refine_from_lobes and gain_topk_scan)"
+            )
+        return search_mode, stride
     prb = 512 if rblk % 512 == 0 else _pow2_divisor(rblk, 512)
     dc = db // stride
     cdblk = _pow2_divisor(dc, cfg.domain_block)
-    rb_rk = _pow2_divisor(rblk, 512)
     # db=0 checks the geometry alone; the size cap is checked below
     geometry_ok = refine_blocks_ok(rblk, rb_rk, stride, cfg.domain_step,
                                    cfg.objective, 0)
@@ -152,7 +169,8 @@ def _norm(raw):
 def _run_search(ranges, raw_norm, n_domains: int, db: int, cfg: EncoderConfig,
                 search_mode: str, stride: int):
     """(idx, score) per range: K1 over the whole bank ("exact"), or K1
-    over the subsampled bank then K2 around the lobe ("coarse")."""
+    (one lobe) or K3 (several) over the subsampled bank, then K2 around
+    each lobe ("coarse")."""
     n = cfg.range_size
     dev = ranges.device
     r_c = ranges - row_mean(ranges)[:, None]
@@ -171,17 +189,33 @@ def _run_search(ranges, raw_norm, n_domains: int, db: int, cfg: EncoderConfig,
     means_ext, bank_sub = _means_setup(raw_norm, n, block_len, stride, dc)
     sub_mean, sub_denom = affine_stats(bank_sub)
     v_sub = torch.arange(dc, device=dev) * stride < n_domains
-    score, cidx = search_scan(
+    scan_args = (
         r_c, bank_sub.T.contiguous(),
         domain_weights(sub_mean, sub_denom, n, cfg.objective), v_sub,
-        domain_thresh(sub_denom, cfg.objective, cfg.s_clip), cfg.s_clip,
     )
-    lobes = torch.where(torch.isfinite(score), cidx, -1)
-    r_score, r_idx = refine_window(
-        means_ext, lobes, ranges, n_domains, stride, block_len, cfg.objective,
-        cfg.s_clip,
-    )
-    return r_idx, r_score
+    thresh = domain_thresh(sub_denom, cfg.objective, cfg.s_clip)
+    topc = _coarse_topc(cfg)
+    if topc == 1:
+        score, cidx = search_scan(*scan_args, thresh, cfg.s_clip)
+        lobes = torch.where(torch.isfinite(score), cidx, -1)
+        r_score, r_idx = refine_window(
+            means_ext, lobes, ranges, n_domains, stride, block_len, cfg.objective,
+            cfg.s_clip,
+        )
+        return r_idx, r_score
+    # (M, topc), a view whose columns are contiguous, as K2 takes them
+    lobes = topc_scan(*scan_args, topc, thresh, cfg.s_clip)
+    best_s = torch.full((ranges.shape[0],), float("-inf"), device=dev)
+    best_i = torch.zeros(ranges.shape[0], dtype=torch.int32, device=dev)
+    for c in range(topc):
+        s_k, i_k = refine_window(
+            means_ext, lobes[:, c], ranges, n_domains, stride, block_len,
+            cfg.objective, cfg.s_clip,
+        )
+        take = s_k > best_s  # strict: the earlier lobe wins ties
+        best_s = torch.where(take, s_k, best_s)
+        best_i = torch.where(take, i_k, best_i)
+    return best_i, best_s
 
 
 def encode_core(raw, n_samples: int, n_ranges: int, n_domains: int, lb: int,

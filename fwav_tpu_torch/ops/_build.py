@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels in fwav_tpu_torch/csrc.
 
-`nvcc` compiles every `csrc/*.cu` for sm_90a into one shared library with
-a plain C interface, at first use, into the package's `_build/` directory
+`nvcc` compiles every `csrc/*.cu` for sm_90a, one process per source, all
+started together, and links the objects into one shared library with a
+plain C interface, at first use, into the package's `_build/` directory
 (listed in .gitignore); the library is rebuilt when a source is newer. It
 is loaded with ctypes. Nothing here runs at import: `nvcc` is looked up
 and run only inside `build`, so the package imports where there is none.
@@ -21,9 +22,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libfwav_kernels.so"
 
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -54,16 +55,33 @@ def build() -> tuple[Path, str]:
     if lib.exists() and lib.stat().st_mtime >= newest:
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+    try:
+        for cmd, proc, out in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+                )
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-    return lib, proc.stdout + proc.stderr
+    return lib, "".join(logs)
 
 
 def load():
@@ -84,6 +102,8 @@ def _bind(lib):
     lib.fwav_search_scan.argtypes = [
         p, p, p, p, p, f, i, i, i, i, i, p, p, p, p, p,
     ]
+    lib.fwav_topc_scan.restype = i
+    lib.fwav_topc_scan.argtypes = [p, p, p, p, p, f, i, i, i, i, p, p]
     lib.fwav_refine_window.restype = i
     lib.fwav_refine_window.argtypes = [
         p, i, p, p, i, i, i, i, i, i, f, p, p, p,

@@ -7,7 +7,8 @@ file imports no JAX, so it also runs where JAX is not installed:
 
 The kernels use the plain versions' order of operations with explicit
 round-to-nearest arithmetic, so on the same inputs the two agree bit for
-bit; the asserts hold them to exactly that.
+bit; the asserts hold them to exactly that. The decode loop, torch ops on
+either device, is held to the host run within a stated tolerance.
 """
 
 import numpy as np
@@ -101,6 +102,84 @@ def test_slice_on_the_card_matches_the_host():
     sig = bench.make_signal(2.0)
     kernels.reset_launch_counts()
     gpu = port.compress_audio_arrays(sig, 44100, 2, device="cuda")
-    assert kernels.LAUNCHES == {"search_scan": 1, "refine_window": 1}
+    assert kernels.LAUNCHES == {"search_scan": 1, "topc_scan": 0, "refine_window": 1}
     cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
+
+
+def _k3(dev, seed, M, D, N, objective, ties):
+    args = _k1(dev, seed, M, D, N, objective)
+    if ties:  # every score occurs twice: bank rows D/2.. copy rows 0..
+        r_c, bankT, w, valid, t, c = args
+        h = D // 2
+        bankT[:, h : 2 * h] = bankT[:, :h]
+        w[h : 2 * h] = w[:h]
+        valid[h : 2 * h] = valid[:h]
+        if t is not None:
+            t[h : 2 * h] = t[:h]
+    return args
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("N,ties", [(4, False), (4, True), (7, False)])
+def test_topc_scan_kernel_equals_plain(dev, objective, C, N, ties):
+    r_c, bankT, w, valid, t, c = _k3(dev, 11 * C + N, 3000, 5000, N, objective, ties)
+    before = kernels.LAUNCHES["topc_scan"]
+    got = kernels.topc_scan(r_c, bankT, w, valid, C, t, c)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["topc_scan"] == before + 1
+    want = kernels.topc_scan_ref(r_c, bankT, w, valid, C, t, c)
+    assert torch.equal(got, want)
+
+
+def test_topc_scan_kernel_unfilled_and_all_invalid(dev):
+    r_c, bankT, w, valid, t, c = _k1(dev, 3, 700, 900, 4, "damped")
+    few = torch.zeros_like(valid)
+    few[[3, 400]] = True  # two valid domains for C = 4: the rest is -1
+    for v in (few, torch.zeros_like(valid)):
+        got = kernels.topc_scan(r_c, bankT, w, v, 4, t, c)
+        assert torch.equal(got, kernels.topc_scan_ref(r_c, bankT, w, v, 4, t, c))
+        assert (got[:, int(v.sum()) :] == -1).all() and (got[:, : int(v.sum())] >= 0).all()
+
+
+def test_damped_slice_on_the_card_matches_the_host():
+    """The 2 s damped slice on the card runs K3 once and K2 once per lobe
+    and gives the host run's records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sig = bench.make_signal(2.0)
+    kernels.reset_launch_counts()
+    gpu = port.compress_audio_arrays(sig, 44100, 2, objective="damped", device="cuda")
+    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 1, "refine_window": 4}
+    cpu = port.compress_audio_arrays(sig, 44100, 2, objective="damped", device="cpu")
+    np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
+
+
+@pytest.mark.parametrize("s_damping,iterations", [(0.25, 8), (0.3, 40), (-0.5, 3)])
+def test_decode_loop_on_the_card_matches_the_host(dev, monkeypatch, s_damping, iterations):
+    """The loop's per-range arithmetic is the same elementwise sequence on
+    both devices; only the norms of the stop test sum in another order.
+    Bar: atol 1e-5 on unit-scale samples, the same iteration count."""
+    from fwav_tpu_torch.models import decode
+
+    monkeypatch.setattr(decode, "DECODE_SHARD_RANGES", 1000)  # three chunks
+    rng = np.random.default_rng(5)
+    M, D, N = 2500, 300, 4
+    bank = rng.standard_normal((D, N)).astype(np.float32)
+    bank[7] = 1.5  # a flat tile: no centered energy
+    rec = np.zeros(M, dtype=port.MATCH_DTYPE)
+    rec["idx"] = rng.integers(0, D, M)
+    rec["idx"][::11] = -1
+    rec["idx"][5] = 7
+    rec["s"] = rng.uniform(-3, 3, M)
+    rec["o"] = rng.standard_normal(M)
+    rec["sym"] = rng.integers(0, 2, M)
+    out = {}
+    for d in ("cuda", "cpu"):
+        stats = {}
+        out[d] = (port.decompress_audio(rec, bank, M, N, iterations=iterations,
+                                        s_damping=s_damping, convergence_eps=1e-4,
+                                        stats=stats, device=d), stats)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-5)
+    assert out["cuda"][1]["iterations"] == out["cpu"][1]["iterations"]

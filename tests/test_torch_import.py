@@ -48,6 +48,8 @@ def test_kernel_wrappers_refuse_other_devices():
     t = torch.zeros((8, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.search_scan(t, t.T, t[0], t[0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.topc_scan(t, t.T, t[0], t[0], 4)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -69,6 +71,8 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 def test_public_api_exports():
     for name in ("compress_audio_arrays", "compress_audio", "decompress_audio",
                  "save_compressed", "load_compressed", "read_wav_mono",
-                 "write_wav", "compute_snr"):
+                 "write_wav", "compute_snr", "save_compressed_compact",
+                 "load_compressed_compact", "parse_decode_hint"):
         assert callable(getattr(port, name)), name
     assert port.MATCH_DTYPE.itemsize == 17 and np.dtype(port.MATCH_DTYPE).names[0] == "idx"
+    assert port.DAMPED_DECODE_DAMPING == 0.25

@@ -1,12 +1,15 @@
 """The plain versions of the port's search kernels (ops/kernels.py, what a
 CPU tensor runs) against the JAX package's Pallas kernels in interpret
-mode and its lax.scan oracle, on the same seeded inputs.
+mode and its lax.scan oracles, on the same seeded inputs.
 
 The bar is tests/test_pallas_search.py's: the set of ranges without a
 finite score (-inf) is identical, and the selected idx differ in at most 2
 rows per 1,024, only where the two picks' gains, recomputed in float64,
 agree to rtol 1e-5 (float32 near-ties: the kernels sum in their own
-order). The kernel-vs-plain comparisons that need a card are in
+order). For K3 the same bar holds per row of top-C lists: the lists are
+equal in the same order (-1 entries included) except in at most 2 rows
+per 1,024, whose entries' float64 gains agree to rtol 1e-5, position by
+position. The kernel-vs-plain comparisons that need a card are in
 tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
@@ -15,8 +18,17 @@ import pytest
 import torch
 
 from fwav_tpu.ops.affine import affine_stats as jax_affine_stats
-from fwav_tpu.ops.pallas_search import exact_search_scan_pallas, refine_window_pallas
-from fwav_tpu.ops.search import domain_thresh, domain_weights, exact_search_scan
+from fwav_tpu.ops.pallas_search import (
+    exact_search_scan_pallas,
+    refine_window_pallas,
+    topc_search_scan_pallas,
+)
+from fwav_tpu.ops.search import (
+    domain_thresh,
+    domain_weights,
+    exact_search_scan,
+    gain_topk_scan,
+)
 from fwav_tpu_torch.ops import kernels
 
 torch.set_num_threads(2)
@@ -73,7 +85,7 @@ def test_search_scan_ref_matches_pallas_and_scan(objective, seed):
         torch.from_numpy(w), torch.from_numpy(valid),
         None if t is None else torch.from_numpy(t), s_clip,
     ))
-    assert kernels.LAUNCHES == {"search_scan": 0, "refine_window": 0}
+    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 0, "refine_window": 0}
 
     def gain(ix, rows):
         return _k1_gain(r_c[rows], bank, w, t, s_clip, ix)
@@ -117,6 +129,118 @@ def test_search_scan_ref_blocking_is_invisible():
     s2, i2 = kernels.search_scan_ref(*args, range_block=77, domain_block=128)
     assert torch.equal(s1, s2) and torch.equal(i1, i2)
     assert int(i1.max()) < 450  # ties resolved to the lower copy
+
+
+def _k3_gain(r_c, bank, w, thresh, c, idx):
+    """float64 K3 score of domain idx[i, k] for range i; -inf where -1."""
+    r = r_c.astype(np.float64)[:, None, :]
+    safe = np.maximum(idx, 0)
+    b = bank[safe].astype(np.float64)
+    wk = w[safe].astype(np.float64)
+    no, nm = np.abs((r * b).sum(-1)), np.abs((r[..., ::-1] * b).sum(-1))
+    if thresh is None:
+        g = np.maximum(no * no * wk, nm * nm * wk)
+    else:
+        a = np.maximum(no, nm)
+        t = thresh[safe].astype(np.float64)
+        g = np.where(a > t, c * (2 * a - t), a * a * wk)
+    return np.where(idx >= 0, g, -np.inf)
+
+
+def _assert_same_lists(got, want, gain_fn):
+    """K3's bar (module docstring); returns the count of differing rows."""
+    rows = np.nonzero((got != want).any(1))[0]
+    assert len(rows) <= 2 * -(-len(got) // 1024), len(rows)
+    np.testing.assert_array_equal(got[rows] < 0, want[rows] < 0)
+    if len(rows):
+        np.testing.assert_allclose(gain_fn(got[rows], rows), gain_fn(want[rows], rows),
+                                   rtol=1e-5)
+    return len(rows)
+
+
+def _k3_case(seed, objective, C, valid_case):
+    r_c, bank, w, valid, t, s_clip, dm, dd = _k1_inputs(seed, objective)
+    D = len(bank)
+    if valid_case == "ties":
+        # duplicated rows: every score occurs twice; the lower copy first
+        bank[D // 2 :] = bank[: D // 2]
+        w[D // 2 :] = w[: D // 2]
+        valid[:] = True
+        if t is not None:
+            t[D // 2 :] = t[: D // 2]
+        dm, dd = jax_affine_stats(jnp.asarray(bank))
+    elif valid_case == "three":
+        valid[:] = False
+        valid[[5, 700, 1500]] = True  # C = 4: the last entry of every row is -1
+    elif valid_case == "none":
+        valid[:] = False
+    return r_c, bank, w, valid, t, s_clip, dm, dd
+
+
+@pytest.mark.parametrize("valid_case", ["tail", "ties", "three", "none"])
+@pytest.mark.parametrize("C", [2, 4])
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+def test_topc_scan_ref_matches_pallas_and_scan(objective, C, valid_case):
+    r_c, bank, w, valid, t, s_clip, dm, dd = _k3_case(4, objective, C, valid_case)
+    got = kernels.topc_scan(
+        torch.from_numpy(r_c), torch.from_numpy(bank.T.copy()), torch.from_numpy(w),
+        torch.from_numpy(valid), C, None if t is None else torch.from_numpy(t), s_clip,
+    )
+    assert got.shape == (len(r_c), C) and got.dtype == torch.int32
+    assert all(got[:, k].is_contiguous() for k in range(C))  # K2 takes the columns
+    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 0, "refine_window": 0}
+    got = got.numpy()
+
+    def gain(ix, rows):
+        return _k3_gain(r_c[rows], bank, w, t, s_clip, ix)
+
+    jt = None if t is None else jnp.asarray(t)
+    pallas = np.asarray(topc_search_scan_pallas(
+        jnp.asarray(r_c), jnp.asarray(bank.T.copy()), jnp.asarray(w), jnp.asarray(valid),
+        C, range_block=128, domain_block=256, interpret=True, d_thresh=jt, s_clip=s_clip,
+    ))
+    scan = np.asarray(gain_topk_scan(
+        jnp.asarray(r_c), jnp.asarray(bank), jnp.asarray(w), jnp.asarray(valid), C, 256,
+        d_thresh=jt, s_clip=s_clip if t is not None else None,
+    ))
+    _assert_same_lists(got, scan, gain)
+    if valid_case == "ties":
+        # the TPU kernel orders exact ties by its domain blocks, unlike its
+        # oracle (topc_scan_ref's docstring): the same gain at every
+        # position, the same -1 entries, another order of equal scores
+        assert (pallas != scan).any() or C == 2  # pairs of copies fill C = 2
+        np.testing.assert_array_equal(got < 0, pallas < 0)
+        np.testing.assert_allclose(gain(got, np.arange(len(got))),
+                                   gain(pallas, np.arange(len(got))), rtol=1e-5)
+    else:
+        _assert_same_lists(got, pallas, gain)
+    # the lists are sorted by gain (to float32 rounding), -1 entries last
+    g = gain(got, np.arange(len(got)))
+    fin = np.isfinite(g)
+    assert (fin[:, :-1] | ~fin[:, 1:]).all()
+    both = fin[:, :-1] & fin[:, 1:]
+    assert (np.diff(g, axis=1)[both] <= 1e-6 * np.abs(g[:, :-1][both])).all()
+    if valid_case == "ties":
+        # each score occurs twice, so the top two are a domain and its copy
+        np.testing.assert_array_equal(got[:, 1], got[:, 0] + len(bank) // 2)
+    elif valid_case == "three":
+        assert set(np.unique(got[:, :3])) <= {5, 700, 1500}
+        assert (got[:, 3:] == -1).all() and (got[:, :3] >= 0).all()
+    elif valid_case == "none":
+        assert (got == -1).all()
+
+
+def test_topc_scan_ref_blocking_is_invisible():
+    """Block sizes change nothing: per block C rounds of extraction merged
+    with a strict > give the one stable order, on a bank with exact ties."""
+    r_c, bank, w, valid, t, s_clip, *_ = _k3_case(5, "damped", 4, "ties")
+    args = (torch.from_numpy(r_c), torch.from_numpy(bank.T.copy()),
+            torch.from_numpy(w), torch.from_numpy(valid), 4, torch.from_numpy(t), s_clip)
+    a = kernels.topc_scan_ref(*args)
+    b = kernels.topc_scan_ref(*args, range_block=77, domain_block=96)
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="top_c"):
+        kernels.topc_scan(*args[:4], 9)
 
 
 def _k2_inputs(seed, M=1024, dc=40, tail=700):
@@ -165,7 +289,7 @@ def test_refine_window_ref_matches_pallas(objective):
         torch.from_numpy(ext), torch.from_numpy(lobes), torch.from_numpy(ranges),
         n_valid, stride, B, objective, c,
     ))
-    assert kernels.LAUNCHES == {"search_scan": 0, "refine_window": 0}
+    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 0, "refine_window": 0}
     s_p, i_p = refine_window_pallas(
         jnp.asarray(ext).reshape(1, -1), jnp.asarray(lobes), jnp.asarray(ranges),
         n_valid, stride, B, objective, 256, interpret=True, s_clip=c,
