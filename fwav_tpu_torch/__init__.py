@@ -17,17 +17,25 @@ from .io import (
     read_wav_mono,
     save_compressed,
     save_compressed_compact,
+    save_compressed_streaming,
     write_wav,
 )
-from .models import compress_audio, compress_audio_arrays, decompress_audio, prune_bank
+from .models import (
+    compress_audio,
+    compress_audio_arrays,
+    compress_audio_streaming,
+    decompress_audio,
+    prune_bank,
+)
 from .utils import compute_snr
 
 __version__ = "0.1.0"
 
 __all__ = [
     "DAMPED_DECODE_DAMPING", "FWAV_VERSION", "DecoderConfig", "EncoderConfig",
-    "MATCH_DTYPE", "compress_audio", "compress_audio_arrays", "compute_snr",
-    "decompress_audio", "load_compressed", "load_compressed_arrays",
-    "load_compressed_compact", "parse_decode_hint", "prune_bank",
-    "read_wav_mono", "save_compressed", "save_compressed_compact", "write_wav",
+    "MATCH_DTYPE", "compress_audio", "compress_audio_arrays",
+    "compress_audio_streaming", "compute_snr", "decompress_audio",
+    "load_compressed", "load_compressed_arrays", "load_compressed_compact",
+    "parse_decode_hint", "prune_bank", "read_wav_mono", "save_compressed",
+    "save_compressed_compact", "save_compressed_streaming", "write_wav",
 ]

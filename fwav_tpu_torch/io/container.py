@@ -22,12 +22,14 @@ Layout (little-endian):
                                       s f32, o f32, sym u8, err f32)
 
 The compact v2 layout is io/compact.py; load_compressed_arrays reads both.
+save_compressed_streaming writes the v1 bytes from a bank given in blocks.
 The multichannel v3 layout is not ported yet.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import struct
 
 import numpy as np
@@ -107,12 +109,10 @@ def save_compressed(
     original_len,
 ) -> None:
     """Single-pass write with seek-back SHA-256. Uses the native writer
-    (io.native) when its library builds; the Python path below writes the
-    same bytes."""
+    (io.native) when its library builds; otherwise save_compressed_streaming
+    writes the same bytes with the bank as one block."""
     rec = matches_to_struct(matches)
     domains = np.ascontiguousarray(np.asarray(domains_array, dtype=np.float32))
-    n_ranges = len(rec)
-    n_domains = len(domains)
 
     from . import native
 
@@ -121,24 +121,71 @@ def save_compressed(
         domain_step, energy_threshold, original_len,
     ):
         return
+    save_compressed_streaming(
+        filepath, rec, [domains], len(domains), range_size, framerate, sampwidth,
+        tile_size, domain_step, energy_threshold, original_len,
+    )
 
+
+def _write_hashed(f, sha, flat: np.ndarray) -> None:
+    """Write a uint8 array and hash it, in _CHUNK pieces."""
+    for off in range(0, flat.nbytes, _CHUNK):
+        chunk = flat[off : off + _CHUNK].tobytes()
+        f.write(chunk)
+        sha.update(chunk)
+
+
+def save_compressed_streaming(
+    filepath,
+    matches,
+    domain_blocks,
+    n_domains,
+    range_size,
+    framerate,
+    sampwidth,
+    tile_size,
+    domain_step,
+    energy_threshold,
+    original_len,
+) -> None:
+    """save_compressed with the bank given as an iterator of (rows,
+    range_size) float32 blocks (models/stream.py domain_block_iter), so
+    that the bank of a long file never materializes. The same bytes as
+    save_compressed. The file is written beside the target and renamed
+    into place on success, so a failing iterator never leaves a truncated
+    container at the target path."""
+    rec = matches_to_struct(matches)
+    n_ranges = len(rec)
+    tmp_path = f"{filepath}.tmp"
     sha = hashlib.sha256()
-    with open(filepath, "wb") as f:
-        f.write(
-            pack_header(
-                range_size, framerate, sampwidth, tile_size, domain_step,
-                energy_threshold, n_ranges, n_domains, original_len,
+    written = 0
+    try:
+        with open(tmp_path, "wb") as f:
+            f.write(
+                pack_header(
+                    range_size, framerate, sampwidth, tile_size, domain_step,
+                    energy_threshold, n_ranges, n_domains, original_len,
+                )
             )
-        )
-        f.write(b"\0" * 32)  # checksum placeholder
-        for flat in (domains.reshape(-1).view(np.uint8),
-                     rec.view(np.uint8).reshape(-1)):
-            for off in range(0, flat.nbytes, _CHUNK):
-                chunk = flat[off : off + _CHUNK].tobytes()
-                f.write(chunk)
-                sha.update(chunk)
-        f.seek(_CHECKSUM_OFFSET)
-        f.write(sha.digest())
+            f.write(b"\0" * 32)  # checksum placeholder
+            for block in domain_blocks:
+                block = np.ascontiguousarray(block, dtype=np.float32)
+                _write_hashed(f, sha, block.reshape(-1).view(np.uint8))
+                written += len(block)
+            if written != n_domains:
+                raise ValueError(
+                    f"domain block iterator yielded {written} rows, expected {n_domains}"
+                )
+            _write_hashed(f, sha, rec.view(np.uint8).reshape(-1))
+            f.seek(_CHECKSUM_OFFSET)
+            f.write(sha.digest())
+        os.replace(tmp_path, filepath)
+    except BaseException:
+        try:
+            os.unlink(tmp_path)
+        except OSError:
+            pass
+        raise
 
 
 def load_compressed_arrays(filepath, verify_checksum: bool = True):

@@ -16,6 +16,13 @@ over the stride-subsampled bank, then K2 around each range's lobe;
 top-C lobes over the subsampled bank, then K2 once per lobe column.
 Geometry that the JAX kernel path does not cover raises
 NotImplementedError, naming the ROADMAP.md item that will port it.
+
+The streaming encode (models/stream.py) runs two more device programs,
+the counterparts of the JAX core's mode="masked" and mode="global":
+`encode_core_masked` (one time shard: the host VAD as packed bits,
+window-local codes) and `encode_core_global` (the whole-file
+global-candidate pass: K3 nomination, then the staged window refine of
+ops/search.py).
 """
 
 from __future__ import annotations
@@ -34,13 +41,18 @@ from ..ops.kernels import (
     search_scan,
     topc_scan,
 )
-from ..ops.search import domain_thresh, domain_weights
+from ..ops.search import _window_gains, domain_thresh, domain_weights, refine_from_lobes
 from ..ops.vad import voiced_detection, voiced_mask
 from ..utils.buckets import bucket
 from ..utils.device import resolve_device
 
 #: The 3-byte little-endian idx code of a dead range (sentinel).
 IDX3_SENTINEL = 0xFFFFFF
+#: Largest whole-file bank (rows) whose global pass ships rows as 3-byte
+#: codes; beyond it both of its transfers are int32 with -1 for none. A
+#: module attribute, read at each call, so that a test can drive the int32
+#: branch.
+PACK3_MAX_ROWS = (1 << 24) - 1
 
 
 def pack3(code: torch.Tensor) -> torch.Tensor:
@@ -48,6 +60,28 @@ def pack3(code: torch.Tensor) -> torch.Tensor:
     return torch.stack(
         [(code >> s) & 0xFF for s in (0, 8, 16)], dim=1
     ).to(torch.uint8)
+
+
+def unpack3(b3: torch.Tensor) -> torch.Tensor:
+    """(m, 3) uint8 -> (m,) int32 rows, -1 where the sentinel, on the device."""
+    b = b3.to(torch.int32)
+    c = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
+    return torch.where(c == IDX3_SENTINEL, -1, c)
+
+
+def pack3_np(rows: np.ndarray) -> np.ndarray:
+    """(m,) integer rows (< 0 = dead) -> (m, 3) uint8, host side."""
+    code = np.where(rows < 0, IDX3_SENTINEL, rows).astype(np.int64)
+    return np.stack(
+        [code & 0xFF, (code >> 8) & 0xFF, (code >> 16) & 0xFF], axis=1
+    ).astype(np.uint8)
+
+
+def unpack3_np(b3: np.ndarray) -> np.ndarray:
+    """(m, 3) uint8 -> (m,) int64 rows, -1 where the sentinel, host side."""
+    b3 = b3.astype(np.int64)
+    c = b3[:, 0] | (b3[:, 1] << 8) | (b3[:, 2] << 16)
+    return np.where(c == IDX3_SENTINEL, -1, c)
 
 
 def _pow2_divisor(n: int, cap: int) -> int:
@@ -218,6 +252,23 @@ def _run_search(ranges, raw_norm, n_domains: int, db: int, cfg: EncoderConfig,
     return best_i, best_s
 
 
+def _finish(ranges, raw_norm, n_ranges: int, n_domains: int, inv, db: int,
+            cfg: EncoderConfig, search_mode: str, stride: int):
+    """The search, then the sentinel mask and the 3-byte codes: the part
+    the raw and masked programs share (the JAX core's `finish` and
+    `pack_out` at dp = tp = 1)."""
+    idx, score = _run_search(ranges, raw_norm, n_domains, db, cfg, search_mode, stride)
+    # sentinels: energy-pruned (mean power under 0.75 * thresh, on the
+    # normalized scale), bucket-pad rows, and rows with no finite score
+    mb = ranges.shape[0]
+    r_pow = row_mean(ranges * ranges)
+    thr_n = float(cfg.energy_thresh) * inv * inv
+    r_valid = torch.arange(mb, device=ranges.device) < n_ranges
+    silent = (r_pow < thr_n * 0.75) if cfg.fast_mode else torch.zeros_like(r_valid)
+    dead = silent | ~r_valid | ~torch.isfinite(score)
+    return pack3(torch.where(dead, IDX3_SENTINEL, idx).to(torch.int32))
+
+
 def encode_core(raw, n_samples: int, n_ranges: int, n_domains: int, lb: int,
                 db: int, cfg: EncoderConfig, search_mode: str, stride: int):
     """The device program: bucket-padded raw signal (int16 or float32, on
@@ -226,9 +277,8 @@ def encode_core(raw, n_samples: int, n_ranges: int, n_domains: int, lb: int,
     n = cfg.range_size
     nb = raw.shape[0]
     mb = lb // n
-    thresh = float(cfg.energy_thresh)
     rawf, inv = _norm(raw)
-    mask = voiced_mask(rawf, n_samples, 2 * n, thresh)
+    mask = voiced_mask(rawf, n_samples, 2 * n, float(cfg.energy_thresh))
     weighted = rawf * (mask.to(torch.float32) * inv)
     if lb <= nb:
         base = weighted[:lb]
@@ -241,18 +291,101 @@ def encode_core(raw, n_samples: int, n_ranges: int, n_domains: int, lb: int,
         tpos = last * n + torch.arange(n, device=raw.device)
         refl = torch.where(tpos < n_samples, tpos, 2 * n_samples - 2 - tpos)
         ranges[last] = weighted[refl.clamp(0, nb - 1)]
-    idx, score = _run_search(
-        ranges, rawf * inv, n_domains, db, cfg, search_mode, stride
-    )
+    return _finish(ranges, rawf * inv, n_ranges, n_domains, inv, db, cfg,
+                   search_mode, stride)
 
-    # sentinels: energy-pruned (mean power under 0.75 * thresh, on the
-    # normalized scale), bucket-pad rows, and rows with no finite score
-    r_pow = row_mean(ranges * ranges)
-    thr_n = thresh * inv * inv
-    r_valid = torch.arange(mb, device=raw.device) < n_ranges
-    silent = (r_pow < thr_n * 0.75) if cfg.fast_mode else torch.zeros_like(r_valid)
-    dead = silent | ~r_valid | ~torch.isfinite(score)
-    return pack3(torch.where(dead, IDX3_SENTINEL, idx).to(torch.int32))
+
+def _mask_weighted(raw, mask_bytes):
+    """float32 window, its 1/max|x| and the normalized voiced-weighted
+    window, from the host VAD's packed bits (little-endian within each
+    byte, as np.packbits(..., bitorder="little") writes them): expanded
+    with shifts and a reshape, no gather."""
+    rawf, inv = _norm(raw)
+    shifts = torch.arange(8, dtype=torch.uint8, device=raw.device)
+    bits = (mask_bytes[:, None] >> shifts[None, :]) & 1
+    return rawf, inv, rawf * (bits.reshape(-1).to(torch.float32) * inv)
+
+
+def encode_core_masked(raw, mask_bytes, meta, lb: int, db: int,
+                       cfg: EncoderConfig, search_mode: str, stride: int):
+    """One streaming shard (the JAX core's mode="masked"): the window's
+    raw samples (int16 or float32, bucket-padded to nb, on the device), the
+    host VAD of the same samples as nb/8 packed bytes, and meta =
+    (n_window_samples, range_offset, n_ranges, n_domains) as ints. The
+    window is normalized by its own max|x|; the ranges are the lb weighted
+    samples at range_offset (the host reflect-pads the file's tail before
+    it cuts the windows); the bank is built from the unmasked window.
+    Returns (lb // range_size, 3) uint8 codes of window-local rows."""
+    n = cfg.range_size
+    _, offset, n_ranges, n_domains = (int(v) for v in meta)
+    rawf, inv, weighted = _mask_weighted(raw, mask_bytes)
+    off = min(max(offset, 0), raw.shape[0] - lb)  # lax.dynamic_slice's clamp
+    ranges = weighted[off : off + lb].reshape(lb // n, n)
+    return _finish(ranges, rawf * inv, n_ranges, n_domains, inv, db, cfg,
+                   search_mode, stride)
+
+
+def encode_core_global(raw, mask_bytes, meta, local_rows, lb: int, db: int,
+                       cfg: EncoderConfig, stride: int, topc: int):
+    """The whole-file global-candidate pass (the JAX core's mode="global").
+    Inputs as encode_core_masked's for the whole reflect-padded file (meta
+    = (n_samples, 0, n_ranges, n_domains_total)), plus each range's
+    shard-local winner as a whole-file row: (lb // range_size, 3) uint8
+    codes when db < PACK3_MAX_ROWS, else int32 with -1 for none.
+
+    K3 nominates the top-`topc` rows of the stride-subsampled whole-file
+    bank for every range; the staged window refine (ops/search.py
+    refine_from_lobes) refines each lobe column at full resolution, in
+    range blocks of the JAX lax.map's size, where a strict > lets the
+    earlier lobe win ties. The best is compared with the local winner's
+    gain on the same device bank. Returns, in the input's protocol, the
+    nominated row where it strictly beats a live local winner, else none."""
+    n = cfg.range_size
+    mb = lb // n
+    dev = raw.device
+    n_domains = int(meta[3])
+    dc = db // stride
+    grblk = _pow2_divisor(mb, cfg.range_block)
+    packed = db < PACK3_MAX_ROWS
+    rawf, inv, weighted = _mask_weighted(raw, mask_bytes)
+    ranges = weighted[:lb].reshape(mb, n)  # the caller buckets nb >= lb
+    if packed:
+        local_rows = unpack3(local_rows)
+    bank = build_bank(rawf * inv, cfg.tile_size, n, cfg.domain_step, db, n_domains)
+    # nomination stats on the subsampled rows only (per-row quantities)
+    bank_sub = bank.reshape(dc, stride, n)[:, 0, :]
+    sub_mean, sub_denom = affine_stats(bank_sub)
+    v_sub = torch.arange(dc, device=dev) * stride < n_domains
+    r_c = ranges - row_mean(ranges)[:, None]
+    lobes = topc_scan(
+        r_c, bank_sub.T.contiguous(),
+        domain_weights(sub_mean, sub_denom, n, cfg.objective), v_sub, topc,
+        domain_thresh(sub_denom, cfg.objective, cfg.s_clip), cfg.s_clip,
+    )
+    best_i = torch.zeros(mb, dtype=torch.int32, device=dev)
+    best_s = torch.full((mb,), float("-inf"), device=dev)
+    for r0 in range(0, mb, grblk):
+        rb = ranges[r0 : r0 + grblk]
+        bi, bs = best_i[r0 : r0 + grblk], best_s[r0 : r0 + grblk]
+        for c in range(topc):
+            i_c, s_c = refine_from_lobes(
+                rb, bank, n_domains, lobes[r0 : r0 + grblk, c : c + 1], stride,
+                cfg.s_clip, cfg.objective,
+            )
+            take = s_c > bs  # strict: the earlier lobe wins ties
+            bs.copy_(torch.where(take, s_c, bs))
+            bi.copy_(torch.where(take, i_c, bi))
+    # the local winner's gain on the SAME device bank: one float32 metric
+    # on both sides of the comparison
+    live = local_rows >= 0
+    ls, _ = _window_gains(
+        r_c.T, bank, local_rows.clamp(0, db - 1).to(torch.int64)[None, :],
+        live[None, :], cfg.objective, cfg.s_clip,
+    )
+    win = torch.isfinite(best_s) & (best_s > ls[0]) & live
+    if packed:
+        return pack3(torch.where(win, best_i, IDX3_SENTINEL).to(torch.int32))
+    return torch.where(win, best_i, -1).to(torch.int32)
 
 
 def _empty_result(cfg: EncoderConfig, original_len: int):
@@ -293,7 +426,8 @@ def _prep_signal(signal: np.ndarray, cfg: EncoderConfig):
     if n_domains >= 1 << 24:
         raise ValueError(
             f"{n_domains} domains exceeds the single-shot encoder's 2^24 "
-            "index range (ROADMAP.md: streaming is not ported yet)"
+            "index range; encode long files with "
+            "models.stream.compress_audio_streaming"
         )
     nb = bucket(original_len, 4096)
     lb = bucket(n_ranges, 256) * range_size
@@ -376,9 +510,8 @@ def collect_idx_matches(codes, n_ranges: int, ranges, bank, s_clip: float):
         if rec is not None:
             return rec
 
-    b = b3.astype(np.int32)
-    c = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
-    dead = c == IDX3_SENTINEL
+    c = unpack3_np(b3)
+    dead = c < 0
     rec = np.empty(n_ranges, dtype=MATCH_DTYPE)
     if ranges is None or bool(np.all(dead)):
         rec["idx"] = -1
@@ -420,22 +553,42 @@ def compress_audio_arrays(
     framerate,
     sampwidth,
     tile_size: int = 1024,
+    emb_dim: int = 16,
+    top_k: int = 32,
+    ef_search: int = 50,
+    use_gpu: bool = False,
     energy_thresh: float = 1e-4,
+    domains_tmpdir=None,
+    batch_size_gpu: int = 512,
+    batch_size_cpu: int = 128,
     fast_mode: bool = True,
+    transient_weight: float = 1.0,
+    n_mels: int = 40,
+    cpu_workers=None,
     search: str = "auto",
     objective: str = "balanced",
+    global_candidates: bool | None = None,
     config: EncoderConfig | None = None,
     device="cuda",
 ):
     """Encode one mono signal; returns (records, bank, n_ranges,
     range_size, tile_size, domain_step, energy_thresh, original_len) with
     MATCH_DTYPE records. `device` runs the core: "cuda" (the default) or,
-    when asked for, "cpu", which runs the kernels' plain versions."""
+    when asked for, "cpu", which runs the kernels' plain versions.
+
+    The keyword set is the JAX package's: `emb_dim`, `top_k` and
+    `global_candidates` ride the config (a single-shot encode searches the
+    whole bank, so the last changes nothing here; file-level callers pass
+    one set to this and to the streaming encoder); the other
+    reference-signature kwargs are accepted and do nothing."""
     del framerate, sampwidth  # not used by the encode; kept for API symmetry
+    del ef_search, use_gpu, domains_tmpdir, batch_size_gpu, batch_size_cpu
+    del transient_weight, n_mels, cpu_workers
     dev = resolve_device(device)
     cfg = config or EncoderConfig(
-        tile_size=tile_size, energy_thresh=energy_thresh, fast_mode=fast_mode,
-        search=search, objective=objective,
+        tile_size=tile_size, emb_dim=emb_dim, top_k=top_k,
+        energy_thresh=energy_thresh, fast_mode=fast_mode, search=search,
+        objective=objective, global_candidates=global_candidates,
     )
     signal = np.ascontiguousarray(np.asarray(signal, dtype=np.float32))
     return _compress_fast(signal, cfg, dev)

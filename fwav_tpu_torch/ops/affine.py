@@ -31,8 +31,10 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
 def row_mean(x: torch.Tensor) -> torch.Tensor:
     """`row_sum` divided by the row length. The divisor is a tensor on the
     data's device: PyTorch's CUDA division by a Python scalar multiplies by
-    its reciprocal instead, which is not exact for every length."""
-    n = torch.tensor(float(x.shape[-1]), dtype=x.dtype, device=x.device)
+    its reciprocal instead, which is not exact for every length. It is
+    filled on the device: torch.tensor(..., device="cuda") copies from the
+    host and waits for the stream, which stalls the launch queue."""
+    n = torch.full((), float(x.shape[-1]), dtype=x.dtype, device=x.device)
     return row_sum(x) / n
 
 

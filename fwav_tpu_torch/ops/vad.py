@@ -71,8 +71,9 @@ def voiced_detection(
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     """A float threshold as a float32 scalar tensor: comparing float32 data
-    against the rounded threshold is what the JAX package does."""
-    return torch.tensor(np.float32(x), device=like.device)
+    against the rounded threshold is what the JAX package does. Filled on
+    the device, with no copy from the host (see ops/affine.py row_mean)."""
+    return torch.full((), float(np.float32(x)), dtype=torch.float32, device=like.device)
 
 
 def hysteresis(energies: torch.Tensor, hi, lo) -> torch.Tensor:

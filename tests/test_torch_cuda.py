@@ -183,3 +183,36 @@ def test_decode_loop_on_the_card_matches_the_host(dev, monkeypatch, s_damping, i
                                         stats=stats, device=d), stats)
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-5)
     assert out["cuda"][1]["iterations"] == out["cpu"][1]["iterations"]
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+def test_stream_on_the_card_matches_the_host(dev, objective):
+    """The mid streaming fixture of tests/test_torch_stream.py (12 s at
+    44.1 kHz, 5 shards of 2^17 samples with 2^15-sample halos) on the card:
+    every shard launches its path's kernels (K1 then K2 balanced; K3 then
+    K2 per lobe damped, and K3 once more in the damped global pass), and
+    the records are the host run's up to near-ties: the same sentinels,
+    at most 2 differing idx per 1,024 rows."""
+    sig = bench.make_signal(12.0)
+    kw = dict(shard_samples=1 << 17, halo=1 << 15, objective=objective)
+    kernels.reset_launch_counts()
+    gpu = port.compress_audio_streaming(sig, 44100, 2, device="cuda", **kw)
+    launches = dict(kernels.LAUNCHES)
+    cpu = port.compress_audio_streaming(sig, 44100, 2, device="cpu", **kw)
+    if objective == "damped":
+        assert launches == {"search_scan": 0, "topc_scan": 6, "refine_window": 20}
+    else:
+        assert launches == {"search_scan": 5, "topc_scan": 0, "refine_window": 5}
+    np.testing.assert_array_equal(gpu[0]["idx"] < 0, cpu[0]["idx"] < 0)
+    assert int((gpu[0]["idx"] != cpu[0]["idx"]).sum()) <= 2 * -(-len(cpu[0]) // 1024)
+
+
+def test_argmax_keeps_the_first_max_on_the_card(dev):
+    """The staged window refine's picks: argmax over the K axis of a
+    (K, M) score takes the first of exact ties on the card too."""
+    s = torch.tensor([[1.0, float("-inf"), 3.0], [2.0, float("-inf"), 3.0],
+                      [2.0, float("-inf"), 1.0]], device=dev)
+    assert s.argmax(0).tolist() == [1, 0, 0]
+    big = torch.zeros((41, 1 << 16), device=dev)
+    big[[7, 30]] = 1.0
+    assert (big.argmax(0) == 7).all()

@@ -35,6 +35,8 @@ def test_cuda_request_without_a_card_raises(speechlike):
     sig, sr, sw = speechlike
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.compress_audio_arrays(sig, sr, sw)  # device="cuda" by default
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.compress_audio_streaming(sig, sr, sw)
     rec, bank, n, rs, *_ = port.compress_audio_arrays(sig, sr, sw, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.decompress_audio(rec, bank, n, rs)
@@ -72,7 +74,8 @@ def test_public_api_exports():
     for name in ("compress_audio_arrays", "compress_audio", "decompress_audio",
                  "save_compressed", "load_compressed", "read_wav_mono",
                  "write_wav", "compute_snr", "save_compressed_compact",
-                 "load_compressed_compact", "parse_decode_hint"):
+                 "load_compressed_compact", "parse_decode_hint",
+                 "compress_audio_streaming", "save_compressed_streaming"):
         assert callable(getattr(port, name)), name
     assert port.MATCH_DTYPE.itemsize == 17 and np.dtype(port.MATCH_DTYPE).names[0] == "idx"
     assert port.DAMPED_DECODE_DAMPING == 0.25
