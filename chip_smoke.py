@@ -6,11 +6,15 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds the CUDA kernels of fwav_tpu_torch/csrc;
+2. build: nvcc builds the CUDA kernels of fwav_tpu_torch/csrc; any ptxas
+   spill fails the run;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the 10 s main paths (and K1 at the exact branch's largest
    bank) and of the 100 s stream (K1, K3 and K2 at a shard's shapes, K3 at
-   the global pass's whole-file shape), with CUDA-event times of both;
+   the global pass's whole-file shape), held to the near-tie bar of
+   fwav_tpu_torch/ops/near_tie.py, with CUDA-event times of both, the
+   kernel's bound (bytes, tensor work and CUDA-core operations of these
+   inputs at the card's published peaks) and its share of it;
 4. slice: 10 s of 44.1 kHz 16-bit mono through the public API on the card
    (WAV write/read, compress_audio_arrays, prune_bank, save/load,
    decompress_audio): K1 and K2 launched, the sentinel count and the
@@ -86,18 +90,48 @@ STREAM_DAMPED_OFF_SNR_DB = 31.4356
 #: Card-vs-host decode bar: the loop's float32 sums run in another order on
 #: the card; the samples are of order 1e4 (16-bit scale).
 DECODE_ATOL = 1e-2
-#: Kernel vs plain bar (tests/test_pallas_search.py's): identical -inf sets;
-#: at most 2 differing idx per 1,024 rows, each a near-tie whose scores
-#: agree to this relative tolerance.
-NEAR_TIE_RTOL = 1e-5
+# The kernel-vs-plain bar is fwav_tpu_torch/ops/near_tie.py's
+# (tests/test_pallas_search.py's): identical -inf sets (K1, K2) and -1
+# entries (K3); at most 2 differing rows per 1,024, each a near-tie whose
+# scores agree to its NEAR_TIE_RTOL (K3: float64 gains of both lists).
+
+# Published peaks of one H100 SXM (NVIDIA's H100 datasheet):
+# the bound of a kernel is the largest of its bytes over the memory rate,
+# its numerators over the BF16 tensor rate (three BF16 products per tap,
+# hi.hi + lo.hi + hi.lo, which carry 16 bits of each factor), and the
+# operations that no multiply-add absorbs over the CUDA cores' issue rate
+# (16,896 lanes at the 1.98 GHz boost clock). The card's power limit is
+# printed beside it.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+CUDA_CORE_OPS_PER_S = 16896 * 1.98e9
+#: K1 and K3, per pair, the screen of csrc/scan_tile.cuh. Balanced and
+#: affine (B prescaled by sqrt(w)): max(|num_o|, |num_m|), the margin's
+#: multiply-add, compare, mark. Damped: the fold, the clip compare, the
+#: linear branch's multiply-add, square, weight, select, then the same
+#: margin, compare and mark. The confirm of the few marked pairs is left out.
+SCAN_EPILOGUE_OPS = {"sqrt": 4, "clip": 9}
+#: K2, per window position, its numerators aside: the box mean (3 adds, a
+#: multiply), denom as sum v^2 - s mean (4 multiply-adds, one more), then
+#: balanced: its weight (denom - s mean, (denom + eps)^2, a reciprocal
+#: and a multiply), fold, square, weight; affine: denom + eps, fold,
+#: square, reciprocal, multiply; damped: denom + eps, fold, c denom, clip
+#: compare, the linear branch (2), square, reciprocal, multiply, select;
+#: then compare and keep the score and the position (3).
+REFINE_OPS_PER_POSITION = {"balanced": 20, "affine": 17, "damped": 22}
+REFINE_WINDOW = 160
+LIBRARY_NOTE = ("none: no single PyTorch call computes a running argmax or top-C of "
+                "the clip-aware, weighted, orientation-folded gain")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over `reps` runs, by CUDA events."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 2, inner: int = 1) -> float:
+    """Median milliseconds of one fn() by CUDA events, over `reps` samples
+    of `inner` back-to-back calls each (so that the host's launch overhead
+    hides behind the card's work)."""
     import torch
 
     for _ in range(warmup):
@@ -107,41 +141,147 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
-def compare(name, got, want):
-    """Hold a kernel's (score, idx) to its plain version's; returns the
-    numbers of the check."""
-    import numpy as np
-
-    s_k, i_k = (x.cpu().numpy() for x in got)
-    s_p, i_p = (x.cpu().numpy() for x in want)
-    fin = np.isfinite(s_p)
-    if not np.array_equal(np.isfinite(s_k), fin):
-        raise AssertionError(f"{name}: the -inf sets differ")
-    diff = np.nonzero(fin & (i_k != i_p))[0]
-    if len(diff) > 2 * -(-len(i_p) // 1024):
-        raise AssertionError(f"{name}: {len(diff)} idx differ")
-    if not np.allclose(s_k[diff], s_p[diff], rtol=NEAR_TIE_RTOL, atol=0):
-        raise AssertionError(f"{name}: idx differ where the scores do not tie")
-    err = float(np.max(np.abs(s_k[fin] - s_p[fin]))) if fin.any() else 0.0
-    return {"rows": int(len(i_p)), "idx_diff": int(len(diff)),
-            "finite": int(fin.sum()), "max_abs_err": err}
+def kernel_ms(fn) -> float:
+    """A kernel's time: 20 samples of 10 back-to-back launches."""
+    return cuda_ms(fn, inner=10)
 
 
-def compare_lists(name, got, want):
-    """Hold K3's lobe lists to its plain version's: equal, -1 included."""
-    import torch
+def bound(terms: dict) -> dict:
+    """The least time of a kernel: the largest of its terms (ms each)."""
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term],
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "bound_terms_ms": terms}
 
-    if not torch.equal(got, want):
-        raise AssertionError(f"{name}: the top-C lists differ")
-    return {"rows": int(got.shape[0]), "idx_diff": 0,
-            "unfilled": int((want < 0).sum()), "max_abs_err": 0.0}
+
+def numerator_ms(count, N) -> float:
+    """Both orientations' numerators of `count` pairs or positions on the
+    tensor cores: N taps, three BF16 products each, 2 flop a product."""
+    return count * 2 * N * 3 * 2 / BF16_FLOP_PER_S * 1e3
+
+
+def scan_bound(M, N, n_valid, D, out_bytes_per_range, clip) -> dict:
+    """K1/K3 at M ranges x n_valid valid domains (of D): the screen on the
+    CUDA cores, the numerators on the tensor cores, the ranges, bank and
+    outputs once."""
+    pairs = M * n_valid
+    ops = SCAN_EPILOGUE_OPS["clip" if clip else "sqrt"]
+    nbytes = M * N * 4 + D * (N * 4 + 4 + 1 + (4 if clip else 0)) + M * out_bytes_per_range
+    return bound({
+        "cuda_core_epilogue": pairs * ops / CUDA_CORE_OPS_PER_S * 1e3,
+        "tensor": numerator_ms(pairs, N),
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+    })
+
+
+def refine_bound(lobes, N, means_len, objective) -> dict:
+    """K2: the positions of the ranges that have a lobe, their numerators
+    on the tensor cores and the rest on the CUDA cores; the box means, the
+    ranges, the lobes and the outputs once."""
+    M = int(lobes.shape[0])
+    positions = int((lobes >= 0).sum()) * REFINE_WINDOW
+    return bound({
+        "cuda_core": positions * REFINE_OPS_PER_POSITION[objective] / CUDA_CORE_OPS_PER_S * 1e3,
+        "tensor": numerator_ms(positions, N),
+        "bytes": (means_len * 4 + M * (N * 4 + 4 + 8)) / HBM_BYTES_PER_S * 1e3,
+    })
+
+
+def timed(check, fn, plain_fn, plain_reps=20, plain_warmup=2) -> dict:
+    """A check's numbers with the kernel's and the plain version's times
+    and the kernel's share of its bound."""
+    ms = kernel_ms(fn)
+    return {**check, "ms": ms, "share_of_bound": check["bound_ms"] / ms,
+            "plain_ms": cuda_ms(plain_fn, reps=plain_reps, warmup=plain_warmup)}
+
+
+def k1_check(kernels, name, args, clip, range_block, **plain_timing):
+    """K1 against its plain version on `args`, timed, with its bound."""
+    from fwav_tpu_torch.ops import near_tie
+
+    kw = {"s_clip": 16.0} if clip else {}
+    a = args if clip else args[:4]
+    M, N = a[0].shape
+    check = {**near_tie.check_argmax(name, kernels.search_scan(*a, **kw),
+                                     kernels.search_scan_ref(*a, **kw,
+                                                             range_block=range_block)),
+             "shape": [M, a[1].shape[1]],
+             **scan_bound(M, N, int(a[3].sum()), a[1].shape[1], 8, clip)}
+    return timed(check, lambda: kernels.search_scan(*a, **kw),
+                 lambda: kernels.search_scan_ref(*a, **kw, range_block=range_block),
+                 **plain_timing)
+
+
+def k3_check(kernels, name, args, range_block, **plain_timing):
+    """K3 (C = 4, s_clip 16) against its plain version, timed, with its
+    bound; differing lists are held to the float64 gains."""
+    from fwav_tpu_torch.ops import near_tie
+
+    r_c, bank_t, w, valid, thresh = args
+    k3 = (r_c, bank_t, w, valid, 4, thresh, 16.0)
+    host = [None if x is None else x.cpu().numpy() for x in (r_c, bank_t, w, thresh)]
+
+    def gain(idx, rows):
+        return near_tie.topc_gain64(host[0][rows], host[1], host[2], host[3], 16.0, idx)
+
+    check = near_tie.check_lists(name, kernels.topc_scan(*k3),
+                                 kernels.topc_scan_ref(*k3, range_block=range_block), gain)
+    M, N = r_c.shape
+    check = {**check, "shape": [M, bank_t.shape[1], 4],
+             **scan_bound(M, N, int(valid.sum()), bank_t.shape[1], 16, thresh is not None)}
+    return timed(check, lambda: kernels.topc_scan(*k3),
+                 lambda: kernels.topc_scan_ref(*k3, range_block=range_block), **plain_timing)
+
+
+def k2_check(kernels, name, k2, **plain_timing):
+    """K2 against its plain version, timed, with its bound."""
+    from fwav_tpu_torch.ops import near_tie
+
+    means_ext, lobes, ranges = k2[:3]
+    check = {**near_tie.check_argmax(name, kernels.refine_window(*k2),
+                                     kernels.refine_window_ref(*k2)),
+             "shape": [int(ranges.shape[0]), int(means_ext.shape[0])],
+             **refine_bound(lobes, ranges.shape[1], int(means_ext.shape[0]), k2[6])}
+    return timed(check, lambda: kernels.refine_window(*k2),
+                 lambda: kernels.refine_window_ref(*k2), **plain_timing)
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spills per kernel from nvcc's -Xptxas -v log; raises
+    if any kernel spills."""
+    import re
+
+    entries, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            entries.setdefault(name, {})["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            entries.setdefault(name, {})["registers"] = int(m.group(1))
+    spilled = {k: v for k, v in entries.items() if v.get("spill")}
+    if spilled:
+        raise AssertionError(f"ptxas reports spills: {spilled}")
+
+    def short(k):  # _ZN..18search_scan_kernelILi4ELb1EE.. -> search_scan_kernel<4,1>
+        m = re.search(r"\d+([a-z_]+_kernel)I(\w+?)EEv", k)
+        return k if not m else f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
+
+    return {"kernels": len(entries), "spill_bytes": 0,
+            "max_registers": max((v.get("registers", 0) for v in entries.values()), default=0),
+            "registers": {short(k): v.get("registers") for k, v in entries.items()
+                          if re.search(r"ILi4E", k) or "merge" in k}}
 
 
 def kernel_inputs(dev, seed: int, M: int, D: int, objective: str):
@@ -191,30 +331,17 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _build.load()
     emit({"phase": "build", "seconds": build_s, "library": str(lib_path),
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "entry function" in ln]})
+          "ptxas": ptxas_summary(log) if log else "up to date"})
 
     # --- kernels vs plain, at main-path shapes ----------------------------
     checks = {}
     M, D = 114688, 3584  # 10 s: padded ranges x stride-128 subsampled bank
-    args = kernel_inputs(dev, 0, M, D, "balanced")
-    got = kernels.search_scan(*args[:4])
-    want = kernels.search_scan_ref(*args[:4], range_block=16384)
-    checks["k1_coarse"] = {
-        **compare("K1 coarse", got, want), "shape": [M, D],
-        "ms": cuda_ms(lambda: kernels.search_scan(*args[:4])),
-        "plain_ms": cuda_ms(lambda: kernels.search_scan_ref(*args[:4], range_block=16384)),
-    }
-    M2, D2 = 8192, 24576  # exact branch: the largest bank bucket under 32,768
-    args2 = kernel_inputs(dev, 1, M2, D2, "damped")
-    got = kernels.search_scan(*args2, s_clip=16.0)
-    want = kernels.search_scan_ref(*args2, s_clip=16.0, range_block=8192)
-    checks["k1_exact_damped"] = {
-        **compare("K1 exact damped", got, want), "shape": [M2, D2],
-        "ms": cuda_ms(lambda: kernels.search_scan(*args2, s_clip=16.0)),
-        "plain_ms": cuda_ms(lambda: kernels.search_scan_ref(*args2, s_clip=16.0,
-                                                            range_block=8192)),
-    }
+    checks["k1_coarse"] = k1_check(kernels, "K1 coarse",
+                                   kernel_inputs(dev, 0, M, D, "balanced"), False, 16384)
+    # exact branch: the largest bank bucket under 32,768
+    checks["k1_exact_damped"] = k1_check(kernels, "K1 exact damped",
+                                         kernel_inputs(dev, 1, 8192, 24576, "damped"),
+                                         True, 8192)
     sig = make_signal(10.0)
     raw_norm = torch.from_numpy(sig / np.abs(sig).max()).to(dev)
     n_valid, stride, block_len = 439977, 128, 256
@@ -224,23 +351,10 @@ def main() -> int:
     ranges = torch.from_numpy(rng.standard_normal((M, 4)).astype(np.float32) * 0.3).to(dev)
     for objective in ("balanced", "affine", "damped"):
         k2 = (means_ext, lobes, ranges, n_valid, stride, block_len, objective, 16.0)
-        got = kernels.refine_window(*k2)
-        want = kernels.refine_window_ref(*k2)
-        checks[f"k2_{objective}"] = {
-            **compare(f"K2 {objective}", got, want), "shape": [M, int(means_ext.shape[0])],
-            "ms": cuda_ms(lambda: kernels.refine_window(*k2)),
-            "plain_ms": cuda_ms(lambda: kernels.refine_window_ref(*k2)),
-        }
-    args3 = {obj: kernel_inputs(dev, 3, M, D, obj) for obj in ("damped", "balanced")}
-    for obj, a in args3.items():
-        k3 = (*a[:4], 4, a[4], 16.0)
-        got = kernels.topc_scan(*k3)
-        want = kernels.topc_scan_ref(*k3, range_block=16384)
-        checks[f"k3_{obj}"] = {
-            **compare_lists(f"K3 {obj}", got, want), "shape": [M, D, 4],
-            "ms": cuda_ms(lambda: kernels.topc_scan(*k3)),
-            "plain_ms": cuda_ms(lambda: kernels.topc_scan_ref(*k3, range_block=16384)),
-        }
+        checks[f"k2_{objective}"] = k2_check(kernels, f"K2 {objective}", k2)
+    for obj in ("damped", "balanced"):
+        checks[f"k3_{obj}"] = k3_check(kernels, f"K3 {obj}",
+                                       kernel_inputs(dev, 3, M, D, obj), 16384)
     stream_sig = make_signal(STREAM_SECONDS)
     stream_kernel_checks(kernels, enc, dev, stream_sig, checks)
     for key, val in checks.items():
@@ -308,13 +422,16 @@ def main() -> int:
                **stream_phase(port, kernels, smi, stream_sig)}
 
     def summary(key, prefix, main_check):
-        """Launches of both main paths; times at the main path's shape; the
-        largest error of all checks."""
+        """Launches of every path; times and bound at the main path's
+        shape; the largest error of all checks."""
         err = max(v["max_abs_err"] for k, v in checks.items() if k.startswith(prefix))
+        main = checks[main_check]
         return {"launches": sum(p[key] for p in by_path.values()),
                 "launches_by_path": {name: p[key] for name, p in by_path.items()},
-                "max_abs_err": err, "ms": checks[main_check]["ms"],
-                "plain_ms": checks[main_check]["plain_ms"]}
+                "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "bound_term": main["bound_term"], "share_of_bound": main["share_of_bound"],
+                "library_ms": None, "library_note": LIBRARY_NOTE, "card": smi}
 
     print(smi, flush=True)
     emit({"kernels": [
@@ -433,37 +550,15 @@ def stream_kernel_checks(kernels, enc, dev, sig, checks):
     # one shard window: 2^20 samples and two 2^18 halos (1,572,864 bank
     # rows); 262,144 ranges against the stride-128 subsampled bank
     M1, D1 = 262144, 12288
-    a = kernel_inputs(dev, 6, M1, D1, "balanced")
-    checks["k1_shard_balanced"] = {
-        **compare("K1 shard balanced", kernels.search_scan(*a[:4]),
-                  kernels.search_scan_ref(*a[:4], range_block=16384)),
-        "shape": [M1, D1],
-        "ms": cuda_ms(lambda: kernels.search_scan(*a[:4])),
-        "plain_ms": cuda_ms(lambda: kernels.search_scan_ref(*a[:4], range_block=16384),
-                            reps=3, warmup=1),
-    }
-    a = kernel_inputs(dev, 7, M1, D1, "damped")
-    k3 = (*a[:4], 4, a[4], 16.0)
-    checks["k3_shard_damped"] = {
-        **compare_lists("K3 shard damped", kernels.topc_scan(*k3),
-                        kernels.topc_scan_ref(*k3, range_block=16384)),
-        "shape": [M1, D1, 4],
-        "ms": cuda_ms(lambda: kernels.topc_scan(*k3)),
-        "plain_ms": cuda_ms(lambda: kernels.topc_scan_ref(*k3, range_block=16384),
-                            reps=3, warmup=1),
-    }
-
-    M, D = 1310720, 10240  # 100 s: padded ranges x stride-512 whole-file rows
-    a = kernel_inputs(dev, 4, M, D, "damped")
-    k3 = (*a[:4], 4, a[4], 16.0)
-    got = kernels.topc_scan(*k3)
-    want = kernels.topc_scan_ref(*k3, range_block=32768)
-    checks["k3_global_damped"] = {
-        **compare_lists("K3 global", got, want), "shape": [M, D, 4],
-        "ms": cuda_ms(lambda: kernels.topc_scan(*k3)),
-        "plain_ms": cuda_ms(lambda: kernels.topc_scan_ref(*k3, range_block=32768),
-                            reps=3, warmup=1),
-    }
+    slow = {"plain_reps": 3, "plain_warmup": 1}
+    checks["k1_shard_balanced"] = k1_check(
+        kernels, "K1 shard balanced", kernel_inputs(dev, 6, M1, D1, "balanced"), False,
+        16384, **slow)
+    checks["k3_shard_damped"] = k3_check(
+        kernels, "K3 shard damped", kernel_inputs(dev, 7, M1, D1, "damped"), 16384, **slow)
+    # 100 s: padded ranges x stride-512 whole-file rows
+    checks["k3_global_damped"] = k3_check(
+        kernels, "K3 global", kernel_inputs(dev, 4, 1310720, 10240, "damped"), 32768, **slow)
     # K2 over one shard window's box-mean sequence
     nbw, stride, block_len = 1572864, 128, 256
     n_valid = nbw - 1024 + 1
@@ -475,13 +570,8 @@ def stream_kernel_checks(kernels, enc, dev, sig, checks):
     ranges = torch.from_numpy(rng.standard_normal((M1, 4)).astype(np.float32) * 0.3).to(dev)
     for objective in ("balanced", "damped"):
         k2 = (means_ext, lobes, ranges, n_valid, stride, block_len, objective, 16.0)
-        checks[f"k2_shard_{objective}"] = {
-            **compare(f"K2 shard {objective}", kernels.refine_window(*k2),
-                      kernels.refine_window_ref(*k2)),
-            "shape": [M1, int(means_ext.shape[0])],
-            "ms": cuda_ms(lambda: kernels.refine_window(*k2)),
-            "plain_ms": cuda_ms(lambda: kernels.refine_window_ref(*k2), reps=5),
-        }
+        checks[f"k2_shard_{objective}"] = k2_check(kernels, f"K2 shard {objective}", k2,
+                                                   plain_reps=5)
 
 
 def stream_run(port, kernels, sig, reps, **kw):

@@ -3,9 +3,10 @@ fwav_tpu/io/native.py that the port uses: write, read, refit, collect,
 and the compact container's rans_encode, rans_decode, pack_bits and
 unpack_bits).
 
-The source is the JAX package's fwav_tpu/native/fwavio.cpp, read as a file
-and never imported. It is built with g++ at first use into this package's
-`_build/` directory. When no compiler or source is there, every entry
+The source is this package's native/fwavio.cpp, a byte-for-byte copy of
+the JAX package's fwav_tpu/native/fwavio.cpp (tests/test_torch_import.py
+holds the two equal). It is built with g++ at first use into this
+package's `_build/` directory. When no compiler or source is there, every entry
 point returns None (or False) and the callers run their numpy versions,
 which give the same results; this is host code and hides no device.
 """
@@ -21,7 +22,7 @@ from pathlib import Path
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG.parent / "fwav_tpu" / "native" / "fwavio.cpp"
+_SRC = _PKG / "native" / "fwavio.cpp"
 _LIB = _PKG / "_build" / "libfwavio.so"
 _lock = threading.Lock()
 _lib = None

@@ -17,9 +17,12 @@ kernels:
 Each wrapper dispatches on the device of its tensors: a CPU tensor takes
 the plain PyTorch version (`search_scan_ref`, `topc_scan_ref`,
 `refine_window_ref`), a CUDA tensor launches the kernel or raises. The
-plain versions compute in the kernels' order of operations, so on the
-same inputs the two agree bit for bit. `LAUNCHES` counts kernel launches
-per wrapper.
+plain versions are the spec, and on the same inputs each kernel agrees
+with its plain version bit for bit: K2 computes in its order of
+operations; K1 and K3 screen every pair on the tensor cores within a
+proven margin and confirm the pairs that can win in its float32
+arithmetic (csrc/scan_tile.cuh). `LAUNCHES` counts kernel launches per
+wrapper.
 
 `pallas_blocks_ok` and `refine_blocks_ok` are the JAX package's gates for
 its kernel path, copied so that the port takes the same branches.
@@ -43,10 +46,10 @@ LAUNCHES = {"search_scan": 0, "topc_scan": 0, "refine_window": 0}
 _OBJECTIVES = {"balanced": 0, "affine": 1, "damped": 2}
 #: Range sizes the CUDA kernels are instantiated for.
 _KERNEL_N = range(4, 17)
-#: Domains per shared-memory tile of the search kernel (search_scan.cu).
-_SCAN_TILE_D = 256
-#: Threads per block of the search kernel, one range each.
-_SCAN_THREADS = 256
+#: Domains per staged bank tile of K1 and K3 (csrc/scan_tile.cuh).
+_SCAN_TILE_D = 128
+#: Ranges per block of K1 and K3 (csrc/scan_tile.cuh).
+_SCAN_RANGES = 128
 #: Largest C of the top-C kernel (its list lives in registers).
 _TOPC_MAX = 8
 #: The refine window's box-mean budget on the TPU (bytes of means). The
@@ -202,9 +205,9 @@ def search_scan(r_c, bankT, w, valid, thresh=None, s_clip=0.0):
     # split the domains over blockIdx.y when the ranges alone would leave
     # the card's SMs idle (the exact branch: few ranges, a large bank)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    range_blocks = -(-M // _SCAN_THREADS)
+    range_blocks = -(-M // _SCAN_RANGES)
     tiles = -(-D // _SCAN_TILE_D)
-    n_split = max(1, min(-(-2 * sms // range_blocks), tiles))
+    n_split = max(1, min(-(-4 * sms // range_blocks), tiles))
     d_per_split = -(-tiles // n_split) * _SCAN_TILE_D
     n_split = -(-D // d_per_split)
     score = torch.empty(M, dtype=torch.float32, device=dev)

@@ -5,10 +5,16 @@ file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The kernels use the plain versions' order of operations with explicit
-round-to-nearest arithmetic, so on the same inputs the two agree bit for
-bit; the asserts hold them to exactly that. The decode loop, torch ops on
-either device, is held to the host run within a stated tolerance.
+K2 uses its plain version's order of operations with explicit
+round-to-nearest arithmetic. K1 and K3 screen every pair on the tensor
+cores (one BF16 m16n8k16 MMA per 64 pairs with a three-term hi/lo split,
+csrc/scan_tile.cuh) within a proven margin and confirm the pairs that can
+win with the plain versions' float32 arithmetic (csrc/scan_tile.cuh). So
+on the same inputs each kernel agrees with its plain version bit for bit,
+exact ties (duplicate bank rows) included, and the asserts hold them to
+exactly that; the encodes on the card give the host runs' records. The
+decode loop, torch ops on either device, is held to the host run within a
+stated tolerance.
 """
 
 import numpy as np
@@ -31,7 +37,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _k1(dev, seed, M, D, N, objective):
+def _k1(dev, seed, M, D, N, objective, prefix=False):
+    """Seeded scan inputs; valid is random (every staged tile mixed), or
+    with `prefix` the callers' valid prefix (whole tiles, then one mixed)."""
     rng = np.random.default_rng(seed)
     r = (rng.standard_normal((M, N)) * 0.5).astype(np.float32)
     bank = (rng.standard_normal((D, N)) * 0.1).astype(np.float32)
@@ -39,16 +47,18 @@ def _k1(dev, seed, M, D, N, objective):
     r_c = torch.from_numpy(r - r.mean(1, keepdims=True)).to(dev)
     b = torch.from_numpy(bank).to(dev)
     mean, denom = affine_stats(b)
-    valid = torch.from_numpy(rng.random(D) > 0.05).to(dev)
+    valid = np.arange(D) < D - 37 if prefix else rng.random(D) > 0.05
     return (r_c, b.T.contiguous(), domain_weights(mean, denom, N, objective),
-            valid, domain_thresh(denom, objective, 2.0), 2.0)
+            torch.from_numpy(valid).to(dev), domain_thresh(denom, objective, 2.0), 2.0)
 
 
 @pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
-@pytest.mark.parametrize("M,D,N", [(1000, 3000, 4), (50, 20000, 4), (333, 1111, 7)])
+@pytest.mark.parametrize("M,D,N", [(1000, 3000, 4), (50, 20000, 4), (333, 1111, 7),
+                                   (77, 1029, 4), (1003, 4099, 16)])
 def test_search_scan_kernel_equals_plain(dev, objective, M, D, N):
     """Including a shape that splits the domains over blocks (few ranges,
-    a large bank) and a range size other than 4."""
+    a large bank), range sizes other than 4, and ragged m16 and n8 edges
+    (M and D not multiples of 8); every staged tile is mixed-valid."""
     args = _k1(dev, M + D, M, D, N, objective)
     before = kernels.LAUNCHES["search_scan"]
     s_k, i_k = kernels.search_scan(*args)
@@ -96,7 +106,7 @@ def test_kernel_wrappers_check_their_inputs(dev):
 
 def test_slice_on_the_card_matches_the_host():
     """The 2 s slice on the card launches both kernels and gives the host
-    run's records (the plain versions are the kernels' arithmetic)."""
+    run's records (the kernels pick what the plain versions pick)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sig = bench.make_signal(2.0)
@@ -120,17 +130,50 @@ def _k3(dev, seed, M, D, N, objective, ties):
     return args
 
 
+def _assert_lower_copy_first(lists, h):
+    """Exact ties: domains h..2h-1 copy domains 0..h-1 and score the same,
+    so in every list a copy ranks behind its lower original."""
+    lists = lists.cpu().numpy()
+    for row, pos in zip(*np.nonzero((lists >= h) & (lists < 2 * h))):
+        assert (lists[row, :pos] == lists[row, pos] - h).any(), (row, lists[row])
+
+
 @pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
-@pytest.mark.parametrize("C", [2, 4, 8])
-@pytest.mark.parametrize("N,ties", [(4, False), (4, True), (7, False)])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("N,ties", [(4, False), (4, True), (7, False), (16, False)])
 def test_topc_scan_kernel_equals_plain(dev, objective, C, N, ties):
     r_c, bankT, w, valid, t, c = _k3(dev, 11 * C + N, 3000, 5000, N, objective, ties)
     before = kernels.LAUNCHES["topc_scan"]
     got = kernels.topc_scan(r_c, bankT, w, valid, C, t, c)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["topc_scan"] == before + 1
-    want = kernels.topc_scan_ref(r_c, bankT, w, valid, C, t, c)
-    assert torch.equal(got, want)
+    assert torch.equal(got, kernels.topc_scan_ref(r_c, bankT, w, valid, C, t, c))
+    if ties:
+        _assert_lower_copy_first(got, 5000 // 2)
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+@pytest.mark.parametrize("M,D,N,C", [(77, 1029, 4, 1), (1003, 4099, 16, 8),
+                                     (2000, 640, 4, 4)])
+def test_scan_kernels_prefix_valid_and_exact_ties(dev, objective, M, D, N, C):
+    """The callers' valid prefix (wholly valid tiles take the unmasked
+    epilogue, the prefix's end a masked one), ragged m16 and n8 edges, and
+    a bank whose second half copies its first: the lower copy wins every
+    exact tie, in K1's argmax and in K3's lists."""
+    args = _k1(dev, M + D + C, M, D, N, objective, prefix=True)
+    r_c, bankT, w, valid, t, c = args
+    h = (D - 37) // 2
+    bankT[:, h : 2 * h] = bankT[:, :h]
+    w[h : 2 * h] = w[:h]
+    if t is not None:
+        t[h : 2 * h] = t[:h]
+    s_k, i_k = kernels.search_scan(*args)
+    s_p, i_p = kernels.search_scan_ref(*args)
+    assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
+    _assert_lower_copy_first(i_k[:, None], h)
+    lists = kernels.topc_scan(r_c, bankT, w, valid, C, t, c)
+    assert torch.equal(lists, kernels.topc_scan_ref(r_c, bankT, w, valid, C, t, c))
+    _assert_lower_copy_first(lists, h)
 
 
 def test_topc_scan_kernel_unfilled_and_all_invalid(dev):

@@ -2,6 +2,8 @@
 its entry points never fall back to the CPU when a CUDA device was asked
 for and there is none."""
 
+import ast
+import re
 import shutil
 import subprocess
 import sys
@@ -27,6 +29,49 @@ def test_no_module_imports_jax_or_fwav_tpu():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+#: A path under the JAX package: `fwav_tpu` as a path component.
+_JAX_PATH = re.compile(r"(?<![\w.])fwav_tpu(?=[/\\\"']|$)")
+
+
+def _code_strings(path: Path):
+    """The string literals of a Python file outside its docstrings, or the
+    text of a C++/CUDA file outside its comments."""
+    text = path.read_text()
+    if path.suffix != ".py":
+        return [re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)]
+    tree = ast.parse(text)
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+def test_port_names_no_path_of_the_jax_package():
+    """No file of fwav_tpu_torch reads or builds a file of fwav_tpu: the
+    port keeps its own copies (comments and docstrings may cite them)."""
+    files = [p for p in (REPO / "fwav_tpu_torch").rglob("*")
+             if p.suffix in (".py", ".cpp", ".cu", ".cuh") and "_build" not in p.parts]
+    assert len(files) > 20 and any(p.suffix == ".cu" for p in files)
+    bad = {str(p.relative_to(REPO)): s for p in files for s in _code_strings(p)
+           if _JAX_PATH.search(s)}
+    assert not bad, bad
+    assert _JAX_PATH.search("fwav_tpu/native/fwavio.cpp")  # the pattern bites
+    assert _JAX_PATH.search("fwav_tpu") and not _JAX_PATH.search("fwav_tpu_torch/io")
+    from fwav_tpu_torch.io import native
+
+    assert native._SRC == REPO / "fwav_tpu_torch" / "native" / "fwavio.cpp"
+
+
+def test_native_source_is_a_copy_of_the_jax_packages():
+    """fwav_tpu_torch/native/fwavio.cpp is the JAX package's byte for byte,
+    so that a change to either is seen."""
+    ours = (REPO / "fwav_tpu_torch" / "native" / "fwavio.cpp").read_bytes()
+    assert ours == (REPO / "fwav_tpu" / "native" / "fwavio.cpp").read_bytes()
 
 
 def test_cuda_request_without_a_card_raises(speechlike):

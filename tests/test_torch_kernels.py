@@ -9,8 +9,9 @@ agree to rtol 1e-5 (float32 near-ties: the kernels sum in their own
 order). For K3 the same bar holds per row of top-C lists: the lists are
 equal in the same order (-1 entries included) except in at most 2 rows
 per 1,024, whose entries' float64 gains agree to rtol 1e-5, position by
-position. The kernel-vs-plain comparisons that need a card are in
-tests/test_torch_cuda.py."""
+position. The bar is fwav_tpu_torch/ops/near_tie.py's, which also holds
+the CUDA kernels to these plain versions on the card
+(tests/test_torch_cuda.py); its comparators are tested here."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +30,7 @@ from fwav_tpu.ops.search import (
     exact_search_scan,
     gain_topk_scan,
 )
-from fwav_tpu_torch.ops import kernels
+from fwav_tpu_torch.ops import kernels, near_tie
 
 torch.set_num_threads(2)
 
@@ -50,14 +51,8 @@ def _k1_gain(r_c, bank, w, thresh, c, idx):
 
 
 def _assert_near_ties(score_a, idx_a, score_b, idx_b, gain_fn):
-    fin = np.isfinite(score_a)
-    np.testing.assert_array_equal(fin, np.isfinite(score_b))
-    diff = np.nonzero(fin & (idx_a != idx_b))[0]
-    assert len(diff) <= 2 * -(-len(idx_a) // 1024), len(diff)
-    if len(diff):
-        np.testing.assert_allclose(gain_fn(idx_a[diff], diff),
-                                   gain_fn(idx_b[diff], diff), rtol=1e-5)
-    return len(diff)
+    return near_tie.check_argmax("scan", (score_a, idx_a), (score_b, idx_b),
+                                 gain_fn)["idx_diff"]
 
 
 def _k1_inputs(seed, objective, M=1024, D=2048, N=4):
@@ -131,31 +126,9 @@ def test_search_scan_ref_blocking_is_invisible():
     assert int(i1.max()) < 450  # ties resolved to the lower copy
 
 
-def _k3_gain(r_c, bank, w, thresh, c, idx):
-    """float64 K3 score of domain idx[i, k] for range i; -inf where -1."""
-    r = r_c.astype(np.float64)[:, None, :]
-    safe = np.maximum(idx, 0)
-    b = bank[safe].astype(np.float64)
-    wk = w[safe].astype(np.float64)
-    no, nm = np.abs((r * b).sum(-1)), np.abs((r[..., ::-1] * b).sum(-1))
-    if thresh is None:
-        g = np.maximum(no * no * wk, nm * nm * wk)
-    else:
-        a = np.maximum(no, nm)
-        t = thresh[safe].astype(np.float64)
-        g = np.where(a > t, c * (2 * a - t), a * a * wk)
-    return np.where(idx >= 0, g, -np.inf)
-
-
 def _assert_same_lists(got, want, gain_fn):
     """K3's bar (module docstring); returns the count of differing rows."""
-    rows = np.nonzero((got != want).any(1))[0]
-    assert len(rows) <= 2 * -(-len(got) // 1024), len(rows)
-    np.testing.assert_array_equal(got[rows] < 0, want[rows] < 0)
-    if len(rows):
-        np.testing.assert_allclose(gain_fn(got[rows], rows), gain_fn(want[rows], rows),
-                                   rtol=1e-5)
-    return len(rows)
+    return near_tie.check_lists("lists", got, want, gain_fn)["idx_diff"]
 
 
 def _k3_case(seed, objective, C, valid_case):
@@ -192,7 +165,7 @@ def test_topc_scan_ref_matches_pallas_and_scan(objective, C, valid_case):
     got = got.numpy()
 
     def gain(ix, rows):
-        return _k3_gain(r_c[rows], bank, w, t, s_clip, ix)
+        return near_tie.topc_gain64(r_c[rows], bank.T, w, t, s_clip, ix)
 
     jt = None if t is None else jnp.asarray(t)
     pallas = np.asarray(topc_search_scan_pallas(
@@ -338,3 +311,75 @@ def test_blocks_gates_match_jax():
                  (16384, 512, 128, 1, "topk", 0)]:
         M, rb, stride, step, obj, db = args
         assert kernels.refine_blocks_ok(*args) == refine_blocks_ok(M, rb, stride, step, 1, obj, db)
+
+
+# --- the near-tie comparators (ops/near_tie.py) ---------------------------
+
+
+def _argmax_case(case):
+    """(got, want) argmax results over 2,048 rows: a near-tie flip, a flip
+    at a real score gap, a changed -inf set, or too many near-tie flips."""
+    rng = np.random.default_rng(8)
+    score = rng.uniform(1.0, 2.0, 2048).astype(np.float32)
+    idx = rng.integers(0, 500, 2048).astype(np.int32)
+    score[7] = -np.inf
+    s2, i2 = score.copy(), idx.copy()
+    flips = {"near_tie": [3, 900], "gap": [3], "neg_inf": [], "too_many": list(range(10, 15))}
+    rows = flips[case]
+    i2[rows] += 1
+    s2[rows] *= np.float32(1 + 2e-6) if case != "gap" else np.float32(1.01)
+    if case == "neg_inf":
+        s2[9] = -np.inf
+    return (s2, i2), (score, idx)
+
+
+@pytest.mark.parametrize("case,passes", [("near_tie", True), ("gap", False),
+                                         ("neg_inf", False), ("too_many", False)])
+def test_near_tie_argmax_bar(case, passes):
+    got, want = _argmax_case(case)
+    if passes:
+        out = near_tie.check_argmax("K1", got, want)
+        assert out["idx_diff"] == 2 and out["rows"] == 2048
+        assert out["finite"] == 2047 and 0 < out["max_abs_err"] < 1e-4
+    else:
+        with pytest.raises(AssertionError, match="K1"):
+            near_tie.check_argmax("K1", got, want)
+
+
+def _lists_case(case):
+    """(got, want, gain) top-4 lists over 2,048 rows whose float64 gain is
+    fixed per domain: two near-tied entries swapped, a clear winner
+    dropped, a changed -1 set, or too many rows with swapped near-ties."""
+    D = 600
+    gains = np.linspace(10.0, 1.0, D)
+    gains[[20, 21]] = [5.0, 5.0 * (1 - 3e-6)]  # a near-tie pair
+    want = np.tile(np.array([0, 1, 20, 21], np.int32), (2048, 1))
+    want[5] = [0, 20, 21, -1]
+    got = want.copy()
+    rows = {"swap": [1], "drop": [1], "unfilled": [], "too_many": list(range(100, 105))}
+    for r in rows[case]:
+        got[r] = [0, 1, 21, 20] if case != "drop" else [1, 20, 21, 30]
+    if case == "unfilled":
+        got[6, 3] = -1
+
+    def gain(idx, _rows):
+        return np.where(idx >= 0, gains[np.maximum(idx, 0)], -np.inf)
+
+    return got, want, gain
+
+
+@pytest.mark.parametrize("case,passes", [("swap", True), ("drop", False),
+                                         ("unfilled", False), ("too_many", False)])
+def test_near_tie_lists_bar(case, passes):
+    got, want, gain = _lists_case(case)
+    if passes:
+        out = near_tie.check_lists("K3", got, want, gain)
+        assert out["idx_diff"] == 1 and out["unfilled"] == 1
+        assert 0 < out["max_rel_gap"] < near_tie.NEAR_TIE_RTOL
+    else:
+        with pytest.raises(AssertionError, match="K3"):
+            near_tie.check_lists("K3", got, want, gain)
+
+
+def test_near_tie_allowance_rounds_up():
+    assert [near_tie.allowed_diffs(n) for n in (1, 1024, 1025, 114688)] == [2, 2, 4, 224]
