@@ -12,21 +12,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the shapes of the 10 s main paths (and K1 at the exact branch's largest
    bank) and of the 100 s stream (K1, K3 and K2 at a shard's shapes, K3 at
    the global pass's whole-file shape), held to the near-tie bar of
-   fwav_tpu_torch/ops/near_tie.py, with CUDA-event times of both, the
-   kernel's bound (bytes, tensor work and CUDA-core operations of these
-   inputs at the card's published peaks) and its share of it;
+   fwav_tpu_torch/ops/near_tie.py (K2, with one lobe per range and with
+   K3's four, and its per-position table to exact equality), with
+   CUDA-event times of both, the kernel's bound (bytes, tensor work and
+   CUDA-core operations of these inputs at the card's published peaks)
+   and its share of it;
 4. slice: 10 s of 44.1 kHz 16-bit mono through the public API on the card
    (WAV write/read, compress_audio_arrays, prune_bank, save/load,
    decompress_audio): K1 and K2 launched, the sentinel count and the
    round-trip SNR of the JAX package's run, warm encode time;
 5. damped: the damped profile's main path on the same file (encode with
-   objective="damped": K3 once, K2 once per lobe; prune_bank; the v2
+   objective="damped": K3 once, K2 once over its four lobes; prune_bank; the v2
    container with the decode hint; load; the decode loop at the stored
    hint): the JAX package's sentinels, SNR and iteration count, the host
    run's records, bytes, warm encode time, decode time, peak memory;
 6. stream: 100 s of bench.make_signal(100.0) through
    compress_audio_streaming at the default shard and halo (5 shards):
-   damped (K3 then K2 per lobe in every shard, then the whole-file global
+   damped (K3 then K2 once in every shard, then the whole-file global
    pass: K3 over every range of the file and the staged window refine;
    the streaming prune, v2 with the hint, the decode loop at the stored
    hint), the same without the pass (it must gain more than 3 dB), and
@@ -111,17 +113,23 @@ CUDA_CORE_OPS_PER_S = 16896 * 1.98e9
 #: linear branch's multiply-add, square, weight, select, then the same
 #: margin, compare and mark. The confirm of the few marked pairs is left out.
 SCAN_EPILOGUE_OPS = {"sqrt": 4, "clip": 9}
-#: K2, per window position, its numerators aside: the box mean (3 adds, a
-#: multiply), denom as sum v^2 - s mean (4 multiply-adds, one more), then
-#: balanced: its weight (denom - s mean, (denom + eps)^2, a reciprocal
-#: and a multiply), fold, square, weight; affine: denom + eps, fold,
-#: square, reciprocal, multiply; damped: denom + eps, fold, c denom, clip
-#: compare, the linear branch (2), square, reciprocal, multiply, select;
-#: then compare and keep the score and the position (3).
-REFINE_OPS_PER_POSITION = {"balanced": 20, "affine": 17, "damped": 22}
+#: K2's CUDA-core operations, its numerators aside (they are counted at
+#: the tensor rate). Once per distinct position that a window reaches, for
+#: N taps: the box mean (N - 1 adds, a multiply), denom as sum v^2 - s mean
+#: (N multiply-adds, one more), then balanced: denom - s mean, denom + eps,
+#: its square, a reciprocal, a multiply (5); affine: denom + eps and its
+#: reciprocal (2); damped: denom + eps, its reciprocal, c denom (3).
+REFINE_OPS_PER_POSITION = {"balanced": 5, "affine": 2, "damped": 3}
+#: Per (range, position) pair, what no design can share across ranges.
+#: Balanced and affine: fold, square, one multiply (by the weight or the
+#: stored reciprocal); damped: fold, clip compare, the linear branch (2),
+#: square, multiply, select; then compare and keep the score and the
+#: position (3).
+REFINE_OPS_PER_PAIR = {"balanced": 6, "affine": 6, "damped": 10}
 REFINE_WINDOW = 160
 LIBRARY_NOTE = ("none: no single PyTorch call computes a running argmax or top-C of "
-                "the clip-aware, weighted, orientation-folded gain")
+                "the clip-aware, weighted, orientation-folded gain, a refine around "
+                "lobes, or its per-position table")
 
 
 def emit(obj) -> None:
@@ -154,6 +162,22 @@ def kernel_ms(fn) -> float:
     return cuda_ms(fn, inner=10)
 
 
+def graph_ms(fn, reps: int = 20, inner: int = 10) -> float:
+    """Median milliseconds of one fn() on the card alone: `inner` calls are
+    captured in a CUDA graph and the graph is replayed, so no host time
+    between launches is counted. For kernels shorter than the host takes to
+    launch them, which kernel_ms would time as the host's launch rate."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return cuda_ms(graph.replay, reps=reps) / inner
+
+
 def bound(terms: dict) -> dict:
     """The least time of a kernel: the largest of its terms (ms each)."""
     term = max(terms, key=terms.get)
@@ -182,23 +206,50 @@ def scan_bound(M, N, n_valid, D, out_bytes_per_range, clip) -> dict:
     })
 
 
-def refine_bound(lobes, N, means_len, objective) -> dict:
-    """K2: the positions of the ranges that have a lobe, their numerators
-    on the tensor cores and the rest on the CUDA cores; the box means, the
-    ranges, the lobes and the outputs once."""
+def stats_ops(N, objective) -> int:
+    """CUDA-core operations of one position's statistics (see
+    REFINE_OPS_PER_POSITION)."""
+    return 2 * N + 1 + REFINE_OPS_PER_POSITION[objective]
+
+
+def refine_bound(lobes, N, means_len, objective, stride) -> dict:
+    """K2 with lobes (M,) or (M, C): the (range, position) pairs of every
+    lobe >= 0, their numerators on the tensor cores and the per-pair rest
+    on the CUDA cores; the statistics once per distinct position that a
+    window reaches (at most means_len); the box means, the ranges, the
+    lobes and the outputs once."""
+    import torch
+
     M = int(lobes.shape[0])
-    positions = int((lobes >= 0).sum()) * REFINE_WINDOW
+    live = lobes[lobes >= 0]
+    pairs = int(live.numel()) * REFINE_WINDOW
+    first = torch.unique(live).long() * stride + (stride - REFINE_WINDOW // 2)
+    reach = torch.zeros(means_len, dtype=torch.bool, device=lobes.device)
+    t = torch.arange(REFINE_WINDOW, device=lobes.device)
+    reach[(first[:, None] + t[None, :]).clamp(max=means_len - 1)] = True
+    positions = int(reach.sum())
+    ops = positions * stats_ops(N, objective) + pairs * REFINE_OPS_PER_PAIR[objective]
+    return {"pairs": pairs, "distinct_positions": positions, **bound({
+        "cuda_core": ops / CUDA_CORE_OPS_PER_S * 1e3,
+        "tensor": numerator_ms(pairs, N),
+        "bytes": (means_len * 4 + M * N * 4 + lobes.numel() * 4 + M * 8)
+        / HBM_BYTES_PER_S * 1e3,
+    })}
+
+
+def stats_bound(N, means_len, objective) -> dict:
+    """K2's table: every position's statistics once; the box means read
+    and the table written once."""
     return bound({
-        "cuda_core": positions * REFINE_OPS_PER_POSITION[objective] / CUDA_CORE_OPS_PER_S * 1e3,
-        "tensor": numerator_ms(positions, N),
-        "bytes": (means_len * 4 + M * (N * 4 + 4 + 8)) / HBM_BYTES_PER_S * 1e3,
+        "cuda_core": means_len * stats_ops(N, objective) / CUDA_CORE_OPS_PER_S * 1e3,
+        "bytes": means_len * 4 * 2 / HBM_BYTES_PER_S * 1e3,
     })
 
 
-def timed(check, fn, plain_fn, plain_reps=20, plain_warmup=2) -> dict:
+def timed(check, fn, plain_fn, plain_reps=20, plain_warmup=2, timer=kernel_ms) -> dict:
     """A check's numbers with the kernel's and the plain version's times
     and the kernel's share of its bound."""
-    ms = kernel_ms(fn)
+    ms = timer(fn)
     return {**check, "ms": ms, "share_of_bound": check["bound_ms"] / ms,
             "plain_ms": cuda_ms(plain_fn, reps=plain_reps, warmup=plain_warmup)}
 
@@ -242,16 +293,59 @@ def k3_check(kernels, name, args, range_block, **plain_timing):
 
 
 def k2_check(kernels, name, k2, **plain_timing):
-    """K2 against its plain version, timed, with its bound."""
+    """K2 (its table and its scoring launch) against its plain version:
+    equal bit for bit; timed whole and each kernel alone as replayed CUDA
+    graphs (`eager_ms`: launched from the host, as the other kernels are
+    timed), with its bound."""
+    import torch
+
     from fwav_tpu_torch.ops import near_tie
 
-    means_ext, lobes, ranges = k2[:3]
-    check = {**near_tie.check_argmax(name, kernels.refine_window(*k2),
-                                     kernels.refine_window_ref(*k2)),
-             "shape": [int(ranges.shape[0]), int(means_ext.shape[0])],
-             **refine_bound(lobes, ranges.shape[1], int(means_ext.shape[0]), k2[6])}
+    means_ext, lobes, ranges, _, stride, block_len, objective, _ = k2
+    N = int(ranges.shape[1])
+    check = near_tie.check_argmax(name, kernels.refine_window(*k2),
+                                  kernels.refine_window_ref(*k2))
+    if check["idx_diff"] or check["max_abs_err"]:
+        raise AssertionError(f"{name}: the kernel and its plain version differ: {check}")
+    stats = kernels.window_stats(means_ext, N, block_len, objective)
+    torch.cuda.synchronize()
+    check = {**check, "shape": [*lobes.shape, int(means_ext.shape[0])],
+             **refine_bound(lobes, N, int(means_ext.shape[0]), objective, stride),
+             "score_ms": graph_ms(lambda: kernels.refine_window(*k2, stats=stats)),
+             "stats_ms": graph_ms(lambda: kernels.window_stats(
+                 means_ext, N, block_len, objective)),
+             "eager_ms": kernel_ms(lambda: kernels.refine_window(*k2))}
     return timed(check, lambda: kernels.refine_window(*k2),
-                 lambda: kernels.refine_window_ref(*k2), **plain_timing)
+                 lambda: kernels.refine_window_ref(*k2), timer=graph_ms, **plain_timing)
+
+
+def stats_check(kernels, name, means_ext, N, block_len, objective):
+    """K2's per-position table against its plain version: exact equality."""
+    import torch
+
+    args = (means_ext, N, block_len, objective)
+    got, want = kernels.window_stats(*args), kernels.window_stats_ref(*args)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: {int((got != want).sum())} table entries differ")
+    check = {"rows": int(got.shape[0]), "max_abs_err": 0.0, "shape": list(got.shape),
+             **stats_bound(N, int(means_ext.shape[0]), objective)}
+    return timed(check, lambda: kernels.window_stats(*args),
+                 lambda: kernels.window_stats_ref(*args), timer=graph_ms)
+
+
+def k2_lobe_matrix(kernels, dev, seed, M, D, objective, n_valid, stride):
+    """(M, 4) lobes as the main path hands them to K2: K3's top 4 on the
+    seeded scan inputs (the transposed view of its (4, M) output), then,
+    so that every case of the merge occurs, whole rows of -1, trailing -1
+    slots, a lobe repeated within its row and a lobe whose window n_valid
+    cuts (lobe 0's is cut by position 0)."""
+    a = kernel_inputs(dev, seed, M, D, objective)
+    lobes = kernels.topc_scan(*a[:4], 4, a[4], 16.0)
+    lobes[::97] = -1
+    lobes[1::53, 2:] = -1
+    lobes[2::31, 3] = lobes[2::31, 0]
+    lobes[3::41, 1] = (n_valid + stride // 2) // stride
+    return lobes
 
 
 def ptxas_summary(log: str) -> dict:
@@ -352,6 +446,12 @@ def main() -> int:
     for objective in ("balanced", "affine", "damped"):
         k2 = (means_ext, lobes, ranges, n_valid, stride, block_len, objective, 16.0)
         checks[f"k2_{objective}"] = k2_check(kernels, f"K2 {objective}", k2)
+        checks[f"ws_{objective}"] = stats_check(kernels, f"K2 table {objective}",
+                                                means_ext, 4, block_len, objective)
+    for objective in ("damped", "balanced"):
+        lobes4 = k2_lobe_matrix(kernels, dev, 3, M, D, objective, n_valid, stride)
+        k2 = (means_ext, lobes4, ranges, n_valid, stride, block_len, objective, 16.0)
+        checks[f"k2_lobes4_{objective}"] = k2_check(kernels, f"K2 4 lobes {objective}", k2)
     for obj in ("damped", "balanced"):
         checks[f"k3_{obj}"] = k3_check(kernels, f"K3 {obj}",
                                        kernel_inputs(dev, 3, M, D, obj), 16384)
@@ -380,8 +480,8 @@ def main() -> int:
         snr = port.compute_snr(signal, recon)
         sentinels = int((rec["idx"] < 0).sum())
         fwav_bytes = fwav.stat().st_size
-    if launches["search_scan"] < 1 or launches["refine_window"] < 1:
-        raise AssertionError(f"the slice did not launch K1 and K2: {launches}")
+    if min(launches[k] for k in ("search_scan", "refine_window", "window_stats")) < 1:
+        raise AssertionError(f"the slice did not launch K1 and K2 with its table: {launches}")
     if n_ranges != SLICE_RANGES or sentinels != SLICE_SENTINELS:
         raise AssertionError(f"{sentinels} sentinels in {n_ranges} ranges")
     if not np.isfinite(recon).all() or recon.shape != signal.shape:
@@ -443,6 +543,10 @@ def main() -> int:
          "source": "fwav_tpu_torch/csrc/refine_window.cu",
          "replaces": "fwav_tpu/ops/pallas_search.py:301",
          **summary("refine_window", "k2_", "k2_balanced")},
+        {"name": "window_stats (K2's per-position table)", "route": "cuda",
+         "source": "fwav_tpu_torch/csrc/refine_window.cu",
+         "replaces": "fwav_tpu/ops/pallas_search.py:301",
+         **summary("window_stats", "ws_", "ws_balanced")},
         {"name": "topc_scan (K3)", "route": "cuda",
          "source": "fwav_tpu_torch/csrc/topc_scan.cu",
          "replaces": "fwav_tpu/ops/pallas_search.py:141",
@@ -479,8 +583,8 @@ def damped_slice(port, kernels, enc, dev, smi, signal, sr, sw):
         snr = port.compute_snr(signal, recon)
         sentinels = int((rec["idx"] < 0).sum())
         fwav_bytes = fwav.stat().st_size
-    if launches["topc_scan"] < 1 or launches["refine_window"] < 4:
-        raise AssertionError(f"the damped slice did not launch K3 and K2 x4: {launches}")
+    if min(launches[k] for k in ("topc_scan", "refine_window", "window_stats")) < 1:
+        raise AssertionError(f"the damped slice did not launch K3 and K2 with its table: {launches}")
     if n_ranges != SLICE_RANGES or sentinels != DAMPED_SENTINELS:
         raise AssertionError(f"damped: {sentinels} sentinels in {n_ranges} ranges")
     if hint != port.DAMPED_DECODE_DAMPING:
@@ -572,6 +676,12 @@ def stream_kernel_checks(kernels, enc, dev, sig, checks):
         k2 = (means_ext, lobes, ranges, n_valid, stride, block_len, objective, 16.0)
         checks[f"k2_shard_{objective}"] = k2_check(kernels, f"K2 shard {objective}", k2,
                                                    plain_reps=5)
+        checks[f"ws_shard_{objective}"] = stats_check(
+            kernels, f"K2 table shard {objective}", means_ext, 4, block_len, objective)
+        lobes4 = k2_lobe_matrix(kernels, dev, 7, M1, D1, objective, n_valid, stride)
+        k2 = (means_ext, lobes4, ranges, n_valid, stride, block_len, objective, 16.0)
+        checks[f"k2_shard_lobes4_{objective}"] = k2_check(
+            kernels, f"K2 shard 4 lobes {objective}", k2, plain_reps=3, plain_warmup=1)
 
 
 def stream_run(port, kernels, sig, reps, **kw):
@@ -650,8 +760,9 @@ def stream_phase(port, kernels, smi, sig):
         torch.cuda.reset_peak_memory_stats()
         res, launches, stats, times = stream_run(port, kernels, sig, 3, objective="damped")
         peak = torch.cuda.max_memory_allocated() / 2**20
-        if launches["topc_scan"] < 6 or launches["refine_window"] < 20:
-            raise AssertionError(f"the damped stream did not launch K3 x6 and K2 x20: {launches}")
+        if launches["topc_scan"] < 6 or min(launches["refine_window"],
+                                            launches["window_stats"]) < 5:
+            raise AssertionError(f"the damped stream did not launch K3 x6 and K2 x5: {launches}")
         sentinels = int((res[0]["idx"] < 0).sum())
         if res[2] != STREAM_RANGES or sentinels != STREAM_SENTINELS:
             raise AssertionError(f"damped stream: {sentinels} sentinels in {res[2]} ranges")
@@ -687,7 +798,7 @@ def stream_phase(port, kernels, smi, sig):
         torch.cuda.reset_peak_memory_stats()
         res, launches, stats, times = stream_run(port, kernels, sig, 3)
         peak = torch.cuda.max_memory_allocated() / 2**20
-        if launches["search_scan"] < 5 or launches["refine_window"] < 5:
+        if min(launches[k] for k in ("search_scan", "refine_window", "window_stats")) < 5:
             raise AssertionError(f"the balanced stream did not launch K1 x5 and K2 x5: {launches}")
         rec, _, n_ranges, rs, tile, step, thr, olen = res
         sentinels = int((rec["idx"] < 0).sum())

@@ -13,7 +13,7 @@ The search takes the JAX package's kernel path (EncoderConfig.use_pallas
 there): "exact" is K1 over the whole bank; "coarse" with one lobe is K1
 over the stride-subsampled bank, then K2 around each range's lobe;
 "coarse" with several lobes (the damped profile always takes 4) is K3's
-top-C lobes over the subsampled bank, then K2 once per lobe column.
+top-C lobes over the subsampled bank, then K2 once over all of them.
 Geometry that the JAX kernel path does not cover raises
 NotImplementedError, naming the ROADMAP.md item that will port it.
 
@@ -203,8 +203,8 @@ def _norm(raw):
 def _run_search(ranges, raw_norm, n_domains: int, db: int, cfg: EncoderConfig,
                 search_mode: str, stride: int):
     """(idx, score) per range: K1 over the whole bank ("exact"), or K1
-    (one lobe) or K3 (several) over the subsampled bank, then K2 around
-    each lobe ("coarse")."""
+    (one lobe) or K3 (several) over the subsampled bank, then K2 once
+    around every lobe ("coarse")."""
     n = cfg.range_size
     dev = ranges.device
     r_c = ranges - row_mean(ranges)[:, None]
@@ -232,24 +232,15 @@ def _run_search(ranges, raw_norm, n_domains: int, db: int, cfg: EncoderConfig,
     if topc == 1:
         score, cidx = search_scan(*scan_args, thresh, cfg.s_clip)
         lobes = torch.where(torch.isfinite(score), cidx, -1)
-        r_score, r_idx = refine_window(
-            means_ext, lobes, ranges, n_domains, stride, block_len, cfg.objective,
-            cfg.s_clip,
-        )
-        return r_idx, r_score
-    # (M, topc), a view whose columns are contiguous, as K2 takes them
-    lobes = topc_scan(*scan_args, topc, thresh, cfg.s_clip)
-    best_s = torch.full((ranges.shape[0],), float("-inf"), device=dev)
-    best_i = torch.zeros(ranges.shape[0], dtype=torch.int32, device=dev)
-    for c in range(topc):
-        s_k, i_k = refine_window(
-            means_ext, lobes[:, c], ranges, n_domains, stride, block_len,
-            cfg.objective, cfg.s_clip,
-        )
-        take = s_k > best_s  # strict: the earlier lobe wins ties
-        best_s = torch.where(take, s_k, best_s)
-        best_i = torch.where(take, i_k, best_i)
-    return best_i, best_s
+    else:
+        # (M, topc), the transposed view of K3's output, as K2 takes it
+        lobes = topc_scan(*scan_args, topc, thresh, cfg.s_clip)
+    # one launch walks every lobe of a range; the earlier lobe wins ties
+    r_score, r_idx = refine_window(
+        means_ext, lobes, ranges, n_domains, stride, block_len, cfg.objective,
+        cfg.s_clip,
+    )
+    return r_idx, r_score
 
 
 def _finish(ranges, raw_norm, n_ranges: int, n_domains: int, inv, db: int,

@@ -10,17 +10,19 @@ kernels:
 - `topc_scan` (K3) replaces `_topc_kernel` (topc_search_scan_pallas):
   the sorted top-C domains per range, the damped profile's coarse lobes.
   CUDA source: csrc/topc_scan.cu.
-- `refine_window` (K2) replaces `_refine_kernel` (refine_window_pallas):
-  the dense window refine around each coarse lobe. CUDA source:
+- `refine_window` (K2) replaces `_refine_kernel` (refine_window_pallas)
+  and the per-lobe merge of its callers: the dense window refine around
+  every coarse lobe of a range, in one launch. Its per-position table
+  comes from `window_stats`, a kernel of its own. CUDA source:
   csrc/refine_window.cu.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor takes
 the plain PyTorch version (`search_scan_ref`, `topc_scan_ref`,
-`refine_window_ref`), a CUDA tensor launches the kernel or raises. The
-plain versions are the spec, and on the same inputs each kernel agrees
-with its plain version bit for bit: K2 computes in its order of
-operations; K1 and K3 screen every pair on the tensor cores within a
-proven margin and confirm the pairs that can win in its float32
+`refine_window_ref`, `window_stats_ref`), a CUDA tensor launches the
+kernel or raises. The plain versions are the spec, and on the same inputs
+each kernel agrees with its plain version bit for bit: K2 computes in its
+order of operations; K1 and K3 screen every pair on the tensor cores
+within a proven margin and confirm the pairs that can win in its float32
 arithmetic (csrc/scan_tile.cuh). `LAUNCHES` counts kernel launches per
 wrapper.
 
@@ -41,7 +43,7 @@ _NEG = float("-inf")
 
 #: Kernel launches per wrapper since the last reset (CPU calls, which take
 #: the plain versions, are not counted).
-LAUNCHES = {"search_scan": 0, "topc_scan": 0, "refine_window": 0}
+LAUNCHES = {"search_scan": 0, "topc_scan": 0, "refine_window": 0, "window_stats": 0}
 
 _OBJECTIVES = {"balanced": 0, "affine": 1, "damped": 2}
 #: Range sizes the CUDA kernels are instantiated for.
@@ -313,9 +315,9 @@ def topc_scan(r_c, bankT, w, valid, top_c: int, thresh=None, s_clip=0.0):
     as search_scan's; 1 <= top_c <= 8. Returns idx (M, top_c) int32, -1
     where fewer than top_c domains have a finite score.
 
-    The result is the transposed view of a (top_c, M) tensor, so each lobe
-    column idx[:, c] is contiguous and goes to refine_window without a
-    copy."""
+    The result is the transposed view of a (top_c, M) tensor (each lobe
+    column idx[:, c] is contiguous); refine_window reads it through its
+    strides, without a copy."""
     if not 1 <= top_c <= _TOPC_MAX:
         raise ValueError(f"topc_scan: top_c={top_c} is outside 1..{_TOPC_MAX}")
     dev = r_c.device
@@ -345,17 +347,91 @@ def topc_scan(r_c, bankT, w, valid, top_c: int, thresh=None, s_clip=0.0):
 # --- K2 -------------------------------------------------------------------
 
 
-def refine_window_ref(means_ext, lobes, ranges, n_valid: int, stride: int,
-                      block_len: int, objective: str = "balanced",
-                      s_clip: float = 16.0):
-    """Plain PyTorch K2, blocked over ranges. Returns (score (M,) float32,
-    idx (M,) int32)."""
+def _window_taps(means_ext, q, n: int, block_len: int):
+    """The n taps means_ext[q + j*block_len] of every index in q, zeros
+    past the end of the sequence."""
+    L = means_ext.shape[0]
+    taps = []
+    for j in range(n):
+        qj = q + j * block_len
+        taps.append(torch.where(qj < L, means_ext[qj.clamp(max=L - 1)], 0.0))
+    return taps
+
+
+def _position_stats(v, n: int):
+    """(mean, denom, denom + eps) of the taps v of every position, in the
+    kernels' order of operations."""
+    mean = v[0]
+    for vj in v[1:]:
+        mean = mean + vj
+    mean = mean * (1.0 / n)
+    denom = torch.zeros_like(mean)
+    for vj in v:
+        d = vj - mean
+        denom = denom + d * d
+    return mean, denom, denom + 1e-12
+
+
+def _balanced_weight(mean, denom, denom_eps, n: int):
+    return (denom - n * mean * mean) / (denom_eps * denom_eps)
+
+
+def window_stats_ref(means_ext, n: int, block_len: int, objective: str = "balanced"):
+    """Plain PyTorch version of `window_stats`: what K2's score needs of a
+    position q of means_ext alone (taps means_ext[q + j*block_len], zeros
+    past the end), in refine_window_ref's arithmetic. Returns (L,)
+    float32: the balanced weight; for affine and damped the taps' centered
+    energy denom (denom + eps and the damped clip threshold c*denom are
+    one operation each from it)."""
+    if objective not in _OBJECTIVES:
+        raise ValueError(f"unknown objective {objective!r}")
+    q = torch.arange(means_ext.shape[0], device=means_ext.device)
+    mean, denom, denom_eps = _position_stats(
+        _window_taps(means_ext, q, n, block_len), n)
+    if objective == "balanced":
+        return _balanced_weight(mean, denom, denom_eps, n)
+    return denom
+
+
+def window_stats(means_ext, n: int, block_len: int, objective: str = "balanced"):
+    """The per-position table of K2 (see window_stats_ref), computed once
+    per box-mean sequence by its own kernel on a CUDA tensor."""
+    dev = means_ext.device
+    if dev.type == "cpu":
+        return window_stats_ref(means_ext, n, block_len, objective)
+    if dev.type != "cuda":
+        raise ValueError(f"window_stats: unsupported device {dev}")
+    _cuda_args("window_stats", {"means_ext": means_ext}, [(torch.float32,)], dev)
+    L = means_ext.shape[0] if means_ext.dim() == 1 else 0
+    if n not in _KERNEL_N or L == 0 or objective not in _OBJECTIVES:
+        raise ValueError(
+            f"window_stats: no kernel for means_ext {tuple(means_ext.shape)}, "
+            f"N={n}, objective={objective!r}"
+        )
+
+    from . import _build
+
+    lib = _build.load()
+    out = torch.empty(L, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.fwav_window_stats(
+            _ptr(means_ext), L, n, int(block_len), _OBJECTIVES[objective],
+            np.float32(1.0 / n).item(), _ptr(out), ctypes.c_void_p(stream),
+        )
+    _build.check(lib, code, "window_stats")
+    LAUNCHES["window_stats"] += 1
+    return out
+
+
+def _refine_one_lobe(means_ext, lobes, ranges, n_valid: int, stride: int,
+                     block_len: int, objective: str, s_clip: float):
+    """refine_window_ref for one lobe per range, blocked over ranges."""
     range_block = 16384
     M, n = ranges.shape
     dev = ranges.device
     W = stride + stride // 4
     half = W // 2
-    L = means_ext.shape[0]
     c = abs(float(s_clip))
     t = torch.arange(W, device=dev)
     score = torch.empty(M, dtype=torch.float32, device=dev)
@@ -367,26 +443,15 @@ def refine_window_ref(means_ext, lobes, ranges, n_valid: int, stride: int,
         rc = r - row_mean(r)[:, None]
         p0 = lb * stride - half                       # position of t = 0
         q = (p0 + stride)[:, None] + t[None, :]       # its index in means_ext
-        v = []
-        for j in range(n):
-            qj = q + j * block_len
-            v.append(torch.where(qj < L, means_ext[qj.clamp(max=L - 1)], 0.0))
-        mean = v[0]
-        for vj in v[1:]:
-            mean = mean + vj
-        mean = mean * (1.0 / n)
+        v = _window_taps(means_ext, q, n, block_len)
+        mean, denom, denom_eps = _position_stats(v, n)
         no = rc[:, 0:1] * v[0]
         nm = rc[:, n - 1 : n] * v[0]
         for j in range(1, n):
             no = no + rc[:, j : j + 1] * v[j]
             nm = nm + rc[:, n - 1 - j : n - j] * v[j]
-        denom = torch.zeros_like(mean)
-        for vj in v:
-            d = vj - mean
-            denom = denom + d * d
-        denom_eps = denom + 1e-12
         if objective == "balanced":
-            wgt = (denom - n * mean * mean) / (denom_eps * denom_eps)
+            wgt = _balanced_weight(mean, denom, denom_eps, n)
             sc = torch.maximum(no * no, nm * nm) * wgt
         elif objective == "damped":
             a = torch.maximum(no.abs(), nm.abs())
@@ -405,14 +470,39 @@ def refine_window_ref(means_ext, lobes, ranges, n_valid: int, stride: int,
     return score, idx
 
 
+def refine_window_ref(means_ext, lobes, ranges, n_valid: int, stride: int,
+                      block_len: int, objective: str = "balanced",
+                      s_clip: float = 16.0):
+    """Plain PyTorch K2. lobes (M,) or (M, C): each lobe column is refined
+    on its own and a later column takes a range only with a strictly higher
+    score (the earlier lobe wins ties). Returns (score (M,) float32, idx
+    (M,) int32)."""
+    cols = [lobes] if lobes.dim() == 1 else list(lobes.unbind(1))
+    best = None
+    for col in cols:
+        s_k, i_k = _refine_one_lobe(means_ext, col, ranges, n_valid, stride,
+                                    block_len, objective, s_clip)
+        if best is None:
+            best = (s_k, i_k)
+        else:
+            take = s_k > best[0]  # strict: the earlier lobe wins ties
+            best = (torch.where(take, s_k, best[0]), torch.where(take, i_k, best[1]))
+    return best
+
+
 def refine_window(means_ext, lobes, ranges, n_valid: int, stride: int,
                   block_len: int, objective: str = "balanced",
-                  s_clip: float = 16.0):
-    """K2: per range with coarse lobe L (-1 = none), the best of the
+                  s_clip: float = 16.0, stats=None):
+    """K2: per range and coarse lobe L (-1 = none), the best of the
     W = stride + stride/4 positions p = L*stride - W/2 + t of the box-mean
     sequence (tap j = means[p + j*block_len]; means_ext (Lext,) holds a
     stride-wide zero lead), by the balanced, affine or damped gain;
-    positions outside [0, n_valid) score -inf, the first max wins.
+    positions outside [0, n_valid) score -inf. lobes is (M,), or (M, C)
+    with the lobes of a range in its row (contiguous, or the transposed
+    view that topc_scan returns): one launch walks every lobe of a range,
+    and the first max in (lobe, position) order wins, so the earlier lobe
+    wins ties. `stats` is window_stats(...) of the same means_ext, range
+    size, block_len and objective, computed here when not given.
     Returns (score (M,) float32, idx (M,) int32 clipped to
     [0, n_valid - 1])."""
     dev = ranges.device
@@ -421,19 +511,35 @@ def refine_window(means_ext, lobes, ranges, n_valid: int, stride: int,
                                  block_len, objective, s_clip)
     if dev.type != "cuda":
         raise ValueError(f"refine_window: unsupported device {dev}")
+    M, n = ranges.shape
+    if means_ext.dim() != 1 or lobes.dim() not in (1, 2) or lobes.shape[0] != M:
+        raise ValueError("refine_window: shapes disagree")
+    if n not in _KERNEL_N or M == 0 or lobes.numel() == 0 or objective not in _OBJECTIVES:
+        raise ValueError(
+            f"refine_window: no kernel for M={M}, N={n}, lobes "
+            f"{tuple(lobes.shape)}, objective={objective!r}"
+        )
+    L = means_ext.shape[0]
+    if L < n_valid + stride:
+        raise ValueError(
+            f"refine_window: means_ext holds {L} values, fewer than the "
+            f"stride-wide lead and n_valid = {n_valid} positions"
+        )
+    if stats is None:
+        stats = window_stats(means_ext, n, block_len, objective)
+    elif stats.shape != (L,):
+        raise ValueError("refine_window: stats is not window_stats of this means_ext")
     f32 = (torch.float32,)
     _cuda_args(
-        "refine_window",
-        {"means_ext": means_ext, "lobes": lobes, "ranges": ranges},
-        [f32, (torch.int32,), f32], dev,
+        "refine_window", {"means_ext": means_ext, "stats": stats, "ranges": ranges},
+        [f32, f32, f32], dev,
     )
-    M, n = ranges.shape
-    if means_ext.dim() != 1 or lobes.shape != (M,):
-        raise ValueError("refine_window: shapes disagree")
-    if n not in _KERNEL_N or M == 0 or objective not in _OBJECTIVES:
-        raise ValueError(
-            f"refine_window: no kernel for M={M}, N={n}, objective={objective!r}"
-        )
+    # the kernel reads lobes through its strides: any layout, no copy
+    if lobes.device != dev or lobes.dtype != torch.int32:
+        raise TypeError(f"refine_window: lobes is {lobes.dtype} on {lobes.device}, "
+                        f"expected int32 on {dev}")
+    C = 1 if lobes.dim() == 1 else lobes.shape[1]
+    stride_m, stride_c = lobes.stride(0), (0 if lobes.dim() == 1 else lobes.stride(1))
 
     from . import _build
 
@@ -443,8 +549,8 @@ def refine_window(means_ext, lobes, ranges, n_valid: int, stride: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fwav_refine_window(
-            _ptr(means_ext), means_ext.shape[0], _ptr(lobes), _ptr(ranges),
-            M, n, int(n_valid), int(stride), int(block_len),
+            _ptr(means_ext), _ptr(stats), L, _ptr(lobes), C, stride_m, stride_c,
+            _ptr(ranges), M, n, int(n_valid), int(stride), int(block_len),
             _OBJECTIVES[objective], np.float32(abs(float(s_clip))).item(),
             _ptr(score), _ptr(idx), ctypes.c_void_p(stream),
         )

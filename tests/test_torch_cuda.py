@@ -5,11 +5,12 @@ file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-K2 uses its plain version's order of operations with explicit
-round-to-nearest arithmetic. K1 and K3 screen every pair on the tensor
-cores (one BF16 m16n8k16 MMA per 64 pairs with a three-term hi/lo split,
-csrc/scan_tile.cuh) within a proven margin and confirm the pairs that can
-win with the plain versions' float32 arithmetic (csrc/scan_tile.cuh). So
+K2 and its per-position table use their plain versions' order of
+operations with explicit round-to-nearest arithmetic. K1 and K3 screen
+every pair on the tensor cores (one BF16 m16n8k16 MMA per 64 pairs with a
+three-term hi/lo split, csrc/scan_tile.cuh) within a proven margin and
+confirm the pairs that can win with the plain versions' float32
+arithmetic (csrc/scan_tile.cuh). So
 on the same inputs each kernel agrees with its plain version bit for bit,
 exact ties (duplicate bank rows) included, and the asserts hold them to
 exactly that; the encodes on the card give the host runs' records. The
@@ -75,23 +76,110 @@ def test_search_scan_kernel_all_invalid(dev):
     assert torch.isneginf(s).all() and not i.any()
 
 
-@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
-def test_refine_window_kernel_equals_plain(dev, objective):
-    rng = np.random.default_rng(7)
-    stride, B, n, dc, M = 128, 256, 4, 40, 3000
+def _k2(dev, seed, M, n, C, stride=128, B=256, dc=40, pad=1024):
+    """Seeded K2 inputs: a box-mean sequence with its zero lead, (M, C)
+    lobes in K3's layout (the transposed view of (C, M)) with -1 in any
+    slot, whole rows of -1, past-the-end lobes and a repeated lobe, and
+    n_valid short of the sequence, so windows are cut at both ends."""
+    rng = np.random.default_rng(seed)
     sig = (rng.standard_normal(dc * stride + n * B + 4096) * 0.2).astype(np.float32)
     means = np.convolve(sig, np.ones(B) / B, mode="valid").astype(np.float32)
-    ext = np.zeros(stride + len(means) + 1024, np.float32)
+    ext = np.zeros(stride + len(means) + pad, np.float32)
     ext[stride : stride + len(means)] = means
-    lobes = rng.integers(-1, dc + 2, M).astype(np.int32)  # -1 and past-the-end lobes
+    lobes = rng.integers(-1, dc + 2, (C, M)).astype(np.int32)
+    lobes[:, ::13] = -1
+    lobes[0, 1::7] = 0
+    if C > 1:
+        lobes[C - 1, 2::5] = lobes[0, 2::5]
     ranges = (rng.standard_normal((M, n)) * 1.5).astype(np.float32)
-    args = (torch.from_numpy(ext).to(dev), torch.from_numpy(lobes).to(dev),
-            torch.from_numpy(ranges).to(dev), dc * stride - 700, stride, B,
-            objective, 2.0)
-    s_k, i_k = kernels.refine_window(*args)
-    s_p, i_p = kernels.refine_window_ref(*args)
+    return (torch.from_numpy(ext).to(dev), torch.from_numpy(lobes).to(dev).T,
+            torch.from_numpy(ranges).to(dev), dc * stride - 700, stride, B)
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("n,C", [(4, 1), (4, 2), (4, 4), (4, 8), (16, 1), (16, 4), (7, 4)])
+def test_refine_window_kernel_equals_plain(dev, objective, n, C):
+    """Single-lobe (M,) and (M, C) forms, ragged M (3001 ranges: the last
+    block's groups are partly empty), against the plain version, exactly."""
+    ext, lobes, ranges, *geom = _k2(dev, 7 + n + C, 3001, n, C)
+    before = dict(kernels.LAUNCHES)
+    s_k, i_k = kernels.refine_window(ext, lobes, ranges, *geom, objective, 2.0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["refine_window"] == before["refine_window"] + 1
+    assert kernels.LAUNCHES["window_stats"] == before["window_stats"] + 1
+    s_p, i_p = kernels.refine_window_ref(ext, lobes, ranges, *geom, objective, 2.0)
     assert torch.equal(i_k, i_p)
     assert torch.equal(s_k, s_p)
+    dead = (lobes < 0).all(1)
+    assert dead.any() and torch.isneginf(s_k[dead]).all() and not i_k[dead].any()
+    if C == 1:  # the (M,) form, and a row-major (M, C) tensor
+        s_1, i_1 = kernels.refine_window(ext, lobes[:, 0].contiguous(), ranges, *geom,
+                                         objective, 2.0)
+        assert torch.equal(i_1, i_p) and torch.equal(s_1, s_p)
+    else:
+        s_c, i_c = kernels.refine_window(ext, lobes.contiguous(), ranges, *geom,
+                                         objective, 2.0)
+        assert torch.equal(i_c, i_p) and torch.equal(s_c, s_p)
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+@pytest.mark.parametrize("stride,B,pad", [(128, 250, 1024), (128, 256, 1023), (96, 256, 1024),
+                                          (100, 256, 1024)])
+def test_refine_window_kernel_unaligned_geometry(dev, objective, stride, B, pad):
+    """A block length, a sequence length or a stride that keeps the windows
+    off 16-byte boundaries takes the kernel's float-by-float loads."""
+    ext, lobes, ranges, *geom = _k2(dev, 3, 1000, 4, 4, stride=stride, B=B, pad=pad)
+    s_k, i_k = kernels.refine_window(ext, lobes, ranges, *geom, objective, 2.0)
+    s_p, i_p = kernels.refine_window_ref(ext, lobes, ranges, *geom, objective, 2.0)
+    assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+def test_refine_window_kernel_earlier_lobe_wins_exact_ties(dev, objective):
+    """A box-mean sequence of period 4 strides: lobes a and a + 4 score the
+    same bits at positions 4 strides apart; the lobe named first gives the
+    position, as in the plain version."""
+    ext, _, ranges, n_valid, stride, B = _k2(dev, 11, 500, 4, 1)
+    period = 4 * stride
+    ext = ext[stride : stride + period].repeat(ext.shape[0] // period + 1)[: ext.shape[0]]
+    ext = ext.contiguous()
+    a = torch.arange(500, dtype=torch.int32, device=dev) % 20 + 2
+    for first, second in ((a, a + 4), (a + 4, a)):
+        args = (ranges, n_valid, stride, B, objective, 2.0)
+        s, i = kernels.refine_window(ext, torch.stack([first, second], dim=1), *args)
+        s_1, i_1 = kernels.refine_window(ext, first.contiguous(), *args)
+        s_2, i_2 = kernels.refine_window(ext, second.contiguous(), *args)
+        assert torch.equal(s_1, s_2) and not torch.equal(i_1, i_2)  # exact ties
+        assert torch.equal(s, s_1) and torch.equal(i, i_1)
+        s_p, i_p = kernels.refine_window_ref(ext, torch.stack([first, second], dim=1), *args)
+        assert torch.equal(s, s_p) and torch.equal(i, i_p)
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("n,B", [(4, 256), (16, 64), (7, 250)])
+def test_window_stats_kernel_equals_plain(dev, objective, n, B):
+    ext = _k2(dev, 5, 8, n, 1, B=B, pad=1023)[0]
+    before = kernels.LAUNCHES["window_stats"]
+    got = kernels.window_stats(ext, n, B, objective)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["window_stats"] == before + 1
+    assert torch.equal(got, kernels.window_stats_ref(ext, n, B, objective))
+
+
+def test_refine_window_takes_a_given_table_and_checks_it(dev):
+    ext, lobes, ranges, *geom = _k2(dev, 9, 300, 4, 4)
+    stats = kernels.window_stats(ext, 4, geom[2], "damped")
+    before = dict(kernels.LAUNCHES)
+    got = kernels.refine_window(ext, lobes, ranges, *geom, "damped", 2.0, stats=stats)
+    assert kernels.LAUNCHES["window_stats"] == before["window_stats"]
+    want = kernels.refine_window_ref(ext, lobes, ranges, *geom, "damped", 2.0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="window_stats"):
+        kernels.refine_window(ext, lobes, ranges, *geom, "damped", 2.0, stats=stats[:-1])
+    with pytest.raises(ValueError, match="fewer than"):
+        kernels.refine_window(ext[: geom[0]], lobes, ranges, *geom, "balanced", 2.0)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.refine_window(ext, lobes.long(), ranges, *geom, "balanced", 2.0)
 
 
 def test_kernel_wrappers_check_their_inputs(dev):
@@ -112,7 +200,8 @@ def test_slice_on_the_card_matches_the_host():
     sig = bench.make_signal(2.0)
     kernels.reset_launch_counts()
     gpu = port.compress_audio_arrays(sig, 44100, 2, device="cuda")
-    assert kernels.LAUNCHES == {"search_scan": 1, "topc_scan": 0, "refine_window": 1}
+    assert kernels.LAUNCHES == {"search_scan": 1, "topc_scan": 0, "refine_window": 1,
+                                "window_stats": 1}
     cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
 
@@ -187,14 +276,15 @@ def test_topc_scan_kernel_unfilled_and_all_invalid(dev):
 
 
 def test_damped_slice_on_the_card_matches_the_host():
-    """The 2 s damped slice on the card runs K3 once and K2 once per lobe
-    and gives the host run's records."""
+    """The 2 s damped slice on the card runs K3 once and K2 once over all
+    four lobes and gives the host run's records."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sig = bench.make_signal(2.0)
     kernels.reset_launch_counts()
     gpu = port.compress_audio_arrays(sig, 44100, 2, objective="damped", device="cuda")
-    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 1, "refine_window": 4}
+    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 1, "refine_window": 1,
+                                "window_stats": 1}
     cpu = port.compress_audio_arrays(sig, 44100, 2, objective="damped", device="cpu")
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
 
@@ -233,7 +323,8 @@ def test_stream_on_the_card_matches_the_host(dev, objective):
     """The mid streaming fixture of tests/test_torch_stream.py (12 s at
     44.1 kHz, 5 shards of 2^17 samples with 2^15-sample halos) on the card:
     every shard launches its path's kernels (K1 then K2 balanced; K3 then
-    K2 per lobe damped, and K3 once more in the damped global pass), and
+    K2 once over its lobes damped, and K3 once more in the damped global
+    pass), and
     the records are the host run's up to near-ties: the same sentinels,
     at most 2 differing idx per 1,024 rows."""
     sig = bench.make_signal(12.0)
@@ -243,9 +334,11 @@ def test_stream_on_the_card_matches_the_host(dev, objective):
     launches = dict(kernels.LAUNCHES)
     cpu = port.compress_audio_streaming(sig, 44100, 2, device="cpu", **kw)
     if objective == "damped":
-        assert launches == {"search_scan": 0, "topc_scan": 6, "refine_window": 20}
+        assert launches == {"search_scan": 0, "topc_scan": 6, "refine_window": 5,
+                            "window_stats": 5}
     else:
-        assert launches == {"search_scan": 5, "topc_scan": 0, "refine_window": 5}
+        assert launches == {"search_scan": 5, "topc_scan": 0, "refine_window": 5,
+                            "window_stats": 5}
     np.testing.assert_array_equal(gpu[0]["idx"] < 0, cpu[0]["idx"] < 0)
     assert int((gpu[0]["idx"] != cpu[0]["idx"]).sum()) <= 2 * -(-len(cpu[0]) // 1024)
 

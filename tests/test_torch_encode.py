@@ -44,7 +44,7 @@ torch.set_num_threads(2)
 # 8 kHz repeats every 200 samples, so its domains tie exactly in float64
 # and float32 rounding picks among them), speechlike 0, sig66000 0,
 # bench10 3, sig66000_topc2 1, sig66000_damped 3, bench10_damped 82 (2 per
-# 1,024 rows is 216). The multi-lobe cases run K3 then K2 once per lobe.
+# 1,024 rows is 216). The multi-lobe cases run K3, then K2 once over all lobes.
 CASES = {
     "tone": ("tone", 8000, dict(tile_size=128), "exact", 96),
     "speechlike": ("speechlike", 16000, {}, "exact", 2),
@@ -265,10 +265,10 @@ def test_cpu_run_launches_no_kernel(speechlike):
     kernels.reset_launch_counts()
     sig, sr, sw = speechlike
     port.compress_audio_arrays(sig, sr, sw, device="cpu")
-    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 0, "refine_window": 0}
+    assert not any(kernels.LAUNCHES.values())
     port.compress_audio_arrays(sig, sr, sw, device="cpu",
                                config=EncoderConfig(search="coarse", objective="damped"))
-    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 0, "refine_window": 0}
+    assert not any(kernels.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("kw,match", [

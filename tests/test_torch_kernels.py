@@ -31,6 +31,7 @@ from fwav_tpu.ops.search import (
     gain_topk_scan,
 )
 from fwav_tpu_torch.ops import kernels, near_tie
+from fwav_tpu_torch.ops.affine import row_mean
 
 torch.set_num_threads(2)
 
@@ -80,7 +81,7 @@ def test_search_scan_ref_matches_pallas_and_scan(objective, seed):
         torch.from_numpy(w), torch.from_numpy(valid),
         None if t is None else torch.from_numpy(t), s_clip,
     ))
-    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 0, "refine_window": 0}
+    assert not any(kernels.LAUNCHES.values())
 
     def gain(ix, rows):
         return _k1_gain(r_c[rows], bank, w, t, s_clip, ix)
@@ -161,7 +162,7 @@ def test_topc_scan_ref_matches_pallas_and_scan(objective, C, valid_case):
     )
     assert got.shape == (len(r_c), C) and got.dtype == torch.int32
     assert all(got[:, k].is_contiguous() for k in range(C))  # K2 takes the columns
-    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 0, "refine_window": 0}
+    assert not any(kernels.LAUNCHES.values())
     got = got.numpy()
 
     def gain(ix, rows):
@@ -262,7 +263,7 @@ def test_refine_window_ref_matches_pallas(objective):
         torch.from_numpy(ext), torch.from_numpy(lobes), torch.from_numpy(ranges),
         n_valid, stride, B, objective, c,
     ))
-    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 0, "refine_window": 0}
+    assert not any(kernels.LAUNCHES.values())
     s_p, i_p = refine_window_pallas(
         jnp.asarray(ext).reshape(1, -1), jnp.asarray(lobes), jnp.asarray(ranges),
         n_valid, stride, B, objective, 256, interpret=True, s_clip=c,
@@ -298,6 +299,130 @@ def test_refine_window_ref_masked_window():
     )
     assert np.all(np.isneginf(score.numpy())) and np.all(np.isneginf(np.asarray(s_p)))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(i_p))
+
+
+def _k2_lobe_matrix(seed, M, dc):
+    """(M, 4) lobes with what K3 and the callers can hand K2: windows cut
+    by position 0 (lobe 0) and by n_valid (the last lobes), -1 in any slot
+    (a whole row too), and a lobe that repeats within its row."""
+    rng = np.random.default_rng(seed)
+    lobes = rng.integers(0, dc, (M, 4)).astype(np.int32)
+    lobes[::5, 0] = 0
+    lobes[1::5, 1] = dc - 1
+    lobes[2::7, 3] = -1
+    lobes[3::11, 1:] = -1
+    lobes[4::13] = -1
+    lobes[5::9, 2] = lobes[5::9, 0]
+    return lobes
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+def test_refine_window_lobe_matrix_matches_pallas_per_lobe(objective):
+    """refine_window on an (M, 4) lobe tensor against the JAX callers'
+    loop: refine_window_pallas once per lobe column, a later column taking
+    a range only with a strictly higher score. Bar: the near-tie bar and
+    rtol 1e-4 of test_refine_window_ref_matches_pallas."""
+    ext, means, _, ranges, n_valid, stride, B = _k2_inputs(3, M=512)
+    lobes = _k2_lobe_matrix(4, 512, 40)
+    c = 2.0
+    for lob in (torch.from_numpy(lobes), torch.from_numpy(lobes.T.copy()).T):
+        score, idx = (x.numpy() for x in kernels.refine_window(
+            torch.from_numpy(ext), lob, torch.from_numpy(ranges), n_valid, stride,
+            B, objective, c,
+        ))
+        assert not any(kernels.LAUNCHES.values())
+        s_p = i_p = None
+        for k in range(4):
+            s_k, i_k = (np.asarray(x) for x in refine_window_pallas(
+                jnp.asarray(ext).reshape(1, -1), jnp.asarray(lobes[:, k]),
+                jnp.asarray(ranges), n_valid, stride, B, objective, 256,
+                interpret=True, s_clip=c,
+            ))
+            if k == 0:
+                s_p, i_p = s_k, i_k
+            else:
+                take = s_k > s_p
+                s_p, i_p = np.where(take, s_k, s_p), np.where(take, i_k, i_p)
+        dead = (lobes < 0).all(1)
+        assert dead.any() and np.all(np.isneginf(score[dead])) and not idx[dead].any()
+        _assert_near_ties(
+            score, idx, s_p, i_p,
+            lambda ix, rows: _k2_gain(means, ranges, rows, ix, B, objective, c),
+        )
+        fin = np.isfinite(score)
+        np.testing.assert_allclose(score[fin], s_p[fin], rtol=1e-4)
+        assert (idx < n_valid).all() and (idx >= 0).all()
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+def test_refine_window_one_column_equals_vector(objective):
+    ext, _, lobes, ranges, n_valid, stride, B = _k2_inputs(5, M=300)
+    args = (torch.from_numpy(ranges), n_valid, stride, B, objective, 2.0)
+    s1, i1 = kernels.refine_window(torch.from_numpy(ext), torch.from_numpy(lobes), *args)
+    s2, i2 = kernels.refine_window(torch.from_numpy(ext),
+                                   torch.from_numpy(lobes)[:, None], *args)
+    assert torch.equal(s1, s2) and torch.equal(i1, i2)
+
+
+def test_refine_window_earlier_lobe_wins_exact_ties():
+    """A box-mean sequence of period 4 strides: lobes a and a + 4 score the
+    same bits, and the one named first gives the position."""
+    ext, _, _, ranges, _, stride, B = _k2_inputs(6, M=64)
+    period = 4 * stride
+    ext = np.tile(ext[stride : stride + period], len(ext) // period + 1)[: len(ext)]
+    n_valid = len(ext) - 2 * stride
+    a = np.arange(64, dtype=np.int32) % 20 + 2
+    for order in ((a, a + 4), (a + 4, a)):
+        lobes = np.stack(order, axis=1)
+        s, i = kernels.refine_window(torch.from_numpy(ext), torch.from_numpy(lobes),
+                                     torch.from_numpy(ranges), n_valid, stride, B)
+        both = [kernels.refine_window(torch.from_numpy(ext), torch.from_numpy(col.copy()),
+                                      torch.from_numpy(ranges), n_valid, stride, B)
+                for col in order]
+        assert torch.equal(both[0][0], both[1][0])  # the tie is exact
+        assert torch.equal(s, both[0][0]) and torch.equal(i, both[0][1])
+        assert not torch.equal(i, both[1][1])
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("n", [4, 7])
+def test_window_stats_ref_equals_inline_statistics(objective, n):
+    """window_stats_ref holds, bit for bit, what refine_window_ref computes
+    inline for each position: scoring a window from the table's entries
+    gives refine_window_ref's scores."""
+    rng = np.random.default_rng(8)
+    stride, B, dc, M = 128, 256, 12, 40
+    L = stride + dc * stride + n * B
+    ext = np.zeros(L, np.float32)
+    ext[stride : L - 300] = rng.standard_normal(L - 300 - stride).astype(np.float32) * 0.2
+    ranges = (rng.standard_normal((M, n)) * 1.5).astype(np.float32)
+    lobes = rng.integers(0, dc, M).astype(np.int32)
+    c, W = 2.0, stride + stride // 4
+    te, tr = torch.from_numpy(ext), torch.from_numpy(ranges)
+    stats = kernels.window_stats(te, n, B, objective)
+    assert stats.shape == (L,)
+    rc = tr - row_mean(tr)[:, None]
+    q = (torch.from_numpy(lobes).long() * stride - W // 2 + stride)[:, None] + torch.arange(W)
+    v = [torch.where(q + j * B < L, te[(q + j * B).clamp(max=L - 1)], 0.0) for j in range(n)]
+    no, nm = rc[:, 0:1] * v[0], rc[:, n - 1 : n] * v[0]
+    for j in range(1, n):
+        no = no + rc[:, j : j + 1] * v[j]
+        nm = nm + rc[:, n - 1 - j : n - j] * v[j]
+    if objective == "balanced":
+        sc = torch.maximum(no * no, nm * nm) * stats[q]
+    elif objective == "affine":
+        sc = torch.maximum(no * no, nm * nm) / (stats[q] + 1e-12)
+    else:
+        a = torch.maximum(no.abs(), nm.abs())
+        th = c * stats[q]
+        sc = torch.where(a > th, c * (2.0 * a - th), a * a / (stats[q] + 1e-12))
+    pos = q - stride
+    n_valid = dc * stride
+    sc = torch.where((pos >= 0) & (pos < n_valid), sc, float("-inf"))
+    s_ref, i_ref = kernels.refine_window_ref(te, torch.from_numpy(lobes), tr, n_valid,
+                                             stride, B, objective, c)
+    assert torch.equal(sc.max(1).values, s_ref)
+    assert torch.equal((pos[:, 0] + sc.argmax(1)).clamp(0, n_valid - 1).int(), i_ref)
 
 
 def test_blocks_gates_match_jax():

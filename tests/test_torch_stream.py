@@ -6,7 +6,7 @@ same settings (EncoderConfig.from_reference).
 Fixtures:
 - mid: bench.make_signal(12.0) at 44.1 kHz, shards of 2^17 samples with
   halos of 2^15: 5 shards whose 196,608-row window banks take the coarse
-  kernel path (K1 then K2 balanced, K3 then K2 per lobe damped), and a
+  kernel path (K1 then K2 balanced, K3 then K2 once over its lobes damped), and a
   damped global pass whose nomination runs on K3. The JAX side runs its
   kernel path (EncoderConfig(use_pallas=True), Pallas in interpret mode).
   Bar: identical sentinel sets; at most 2 differing idx per 1,024 rows,
@@ -213,7 +213,7 @@ def test_cpu_stream_launches_no_kernel():
     kernels.reset_launch_counts()
     sig, sr = small_sig(seconds=1.0, seed=5)
     port.compress_audio_streaming(sig, sr, 2, device="cpu", **SMALL_KW)
-    assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 0, "refine_window": 0}
+    assert not any(kernels.LAUNCHES.values())
 
 
 # --- behaviour cases, each the port side of a JAX package test ------------------
