@@ -38,7 +38,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    encode's device time with and without the pass (torch.profiler; the
    pass's is the difference), decode time, peak memory; then the 12 s
    fixture of tests/test_torch_stream.py on the card against the host's
-   plain run.
+   plain run;
+7. packed, kernels: a stack of 16 files in ONE launch of each kernel (the
+   file is the slowest axis of its grid), with per-file valid / n_valid
+   that differ, at 114,688 x 3,584 (K1 balanced, K3 damped, K2 with one
+   lobe and with four, its table) and at the exact branch's 8,192 x
+   24,576 (K1): equal bit for bit to the 16 single launches, held to the
+   near-tie bar against the plain versions' loop over the files, timed
+   with the bound of the 16 files beside it;
+8. packed: compress_audio_packed on 16 ten-second files of one bucket
+   (bench.make_signal scaled and dithered from 16 seeds) and one of
+   another length, default and damped, and on 16 half-second clips (the
+   exact branch): every file's records equal its compress_audio_arrays
+   records on the card, each kernel launches once per stack, the stack's
+   wall and busy time against 16 single calls, peak memory;
+9. staged: the single-shot geometries whose coarse refine is the staged
+   one (a 60 s file, over the window refine's 9 MB means cap; 10 s at tile
+   512 and at tile 2048), balanced and damped: K2 is not launched, the
+   JAX package's sentinels and SNR, the host run's records, peak memory;
+10. multichannel and segment: a stereo pair through mid/side, both
+   channels damped in one packed call, the v3 container with the decode
+   hint, the hinted decode of both on the card and the inverse
+   transform, against the same pipeline on the host; a segment of it by
+   decompress_segment against the slice of the full decode.
 
 Each slice runs with the launch counts set to 0 just before it and read
 just after; a kernel of the slice that was not launched fails the run.
@@ -89,6 +111,35 @@ STREAM_DAMPED_SNR_DB = 38.5558
 STREAM_DAMPED_ITERATIONS = 6
 STREAM_DAMPED_COMPACT_BYTES_JAX = 5376935
 STREAM_DAMPED_OFF_SNR_DB = 31.4356
+# The staged-refine paths' reference numbers: single-shot encodes whose
+# coarse refine is the staged one (fwav_tpu_torch/models/encode.py
+# _plan_search): a 60 s file, whose bank is over the window refine's 9 MB
+# means cap, and 10 s files at tile 512 (coarse stride 64) and tile 2048
+# (domain_step 2), of bench.make_signal, balanced and damped. From the JAX
+# package's CPU run on its kernel path (EncoderConfig(use_pallas=True)) by
+# scripts/derive_staged_constants.py; the SNR is of the records decoded with
+# `decode`. tests/test_torch_encode.py re-derives them (marked slow).
+STAGED = {
+    "60s_balanced": {"seconds": 60.0, "kw": {}, "decode": {},
+                     "n_ranges": 661500, "sentinels": 49590, "snr_db": 3.0129},
+    "60s_damped": {"seconds": 60.0, "kw": {"objective": "damped"},
+                   "decode": {"s_damping": 0.25},
+                   "n_ranges": 661500, "sentinels": 49590, "snr_db": 39.6227},
+    "tile512_balanced": {"seconds": 10.0, "kw": {"tile_size": 512}, "decode": {},
+                         "n_ranges": 110250, "sentinels": 8265, "snr_db": 6.5902},
+    "tile512_damped": {"seconds": 10.0, "kw": {"tile_size": 512, "objective": "damped"},
+                       "decode": {"s_damping": 0.25},
+                       "n_ranges": 110250, "sentinels": 8265, "snr_db": 41.7493},
+    "tile2048_balanced": {"seconds": 10.0, "kw": {"tile_size": 2048}, "decode": {},
+                          "n_ranges": 55125, "sentinels": 4130, "snr_db": 3.6296},
+    "tile2048_damped": {"seconds": 10.0, "kw": {"tile_size": 2048, "objective": "damped"},
+                        "decode": {"s_damping": 0.25},
+                        "n_ranges": 55125, "sentinels": 4130, "snr_db": 12.0344},
+}
+#: A segment decoded by the loop at its default stop test against the slice
+#: of the full decode, relative to the signal's peak: the stop test's delta
+#: is over the chunk that is decoded, so the two may stop an iteration apart.
+SEGMENT_RTOL = 1e-3
 #: Card-vs-host decode bar: the loop's float32 sums run in another order on
 #: the card; the samples are of order 1e4 (16-bit scale).
 DECODE_ATOL = 1e-2
@@ -192,13 +243,15 @@ def numerator_ms(count, N) -> float:
     return count * 2 * N * 3 * 2 / BF16_FLOP_PER_S * 1e3
 
 
-def scan_bound(M, N, n_valid, D, out_bytes_per_range, clip) -> dict:
+def scan_bound(M, N, n_valid, D, out_bytes_per_range, clip, files: int = 1) -> dict:
     """K1/K3 at M ranges x n_valid valid domains (of D): the screen on the
     CUDA cores, the numerators on the tensor cores, the ranges, bank and
-    outputs once."""
+    outputs once. For a stack, `files` files of M ranges and D domains
+    each, n_valid the valid domains of all files together."""
     pairs = M * n_valid
     ops = SCAN_EPILOGUE_OPS["clip" if clip else "sqrt"]
-    nbytes = M * N * 4 + D * (N * 4 + 4 + 1 + (4 if clip else 0)) + M * out_bytes_per_range
+    nbytes = files * (M * N * 4 + D * (N * 4 + 4 + 1 + (4 if clip else 0))
+                      + M * out_bytes_per_range)
     return bound({
         "cuda_core_epilogue": pairs * ops / CUDA_CORE_OPS_PER_S * 1e3,
         "tensor": numerator_ms(pairs, N),
@@ -235,6 +288,17 @@ def refine_bound(lobes, N, means_len, objective, stride) -> dict:
         "bytes": (means_len * 4 + M * N * 4 + lobes.numel() * 4 + M * 8)
         / HBM_BYTES_PER_S * 1e3,
     })}
+
+
+def stack_refine_bound(lobes, N, means_len, objective, stride) -> dict:
+    """K2 over a stack, lobes (B, M) or (B, M, C): every term of
+    refine_bound summed over the files, then the largest."""
+    per_file = [refine_bound(lob, N, means_len, objective, stride) for lob in lobes]
+    terms = {k: sum(f["bound_terms_ms"][k] for f in per_file)
+             for k in per_file[0]["bound_terms_ms"]}
+    return {"pairs": sum(f["pairs"] for f in per_file),
+            "distinct_positions": sum(f["distinct_positions"] for f in per_file),
+            **bound(terms)}
 
 
 def stats_bound(N, means_len, objective) -> dict:
@@ -378,8 +442,8 @@ def ptxas_summary(log: str) -> dict:
                           if re.search(r"ILi4E", k) or "merge" in k}}
 
 
-def kernel_inputs(dev, seed: int, M: int, D: int, objective: str):
-    """Seeded K1 inputs: centered ranges, a bank and its weights."""
+def kernel_inputs(dev, seed: int, M: int, D: int, objective: str, N: int = 4):
+    """Seeded K1 inputs: centered ranges of N taps, a bank and its weights."""
     import numpy as np
     import torch
 
@@ -387,13 +451,13 @@ def kernel_inputs(dev, seed: int, M: int, D: int, objective: str):
     from fwav_tpu_torch.ops.search import domain_thresh, domain_weights
 
     rng = np.random.default_rng(seed)
-    r = rng.standard_normal((M, 4)).astype(np.float32) * 0.3
-    bank = rng.standard_normal((D, 4)).astype(np.float32) * 0.3
+    r = rng.standard_normal((M, N)).astype(np.float32) * 0.3
+    bank = rng.standard_normal((D, N)).astype(np.float32) * 0.3
     r_c = torch.from_numpy(r - r.mean(1, keepdims=True)).to(dev)
     bank_t = torch.from_numpy(bank).to(dev)
     mean, denom = affine_stats(bank_t)
     valid = torch.arange(D, device=dev) < D - 37
-    return (r_c, bank_t.T.contiguous(), domain_weights(mean, denom, 4, objective),
+    return (r_c, bank_t.T.contiguous(), domain_weights(mean, denom, N, objective),
             valid, domain_thresh(denom, objective, 16.0))
 
 
@@ -457,6 +521,8 @@ def main() -> int:
                                        kernel_inputs(dev, 3, M, D, obj), 16384)
     stream_sig = make_signal(STREAM_SECONDS)
     stream_kernel_checks(kernels, enc, dev, stream_sig, checks)
+    stack_kernel_checks(kernels, enc, dev, sig, checks)
+    staged_kernel_checks(port, kernels, enc, dev, checks)
     for key, val in checks.items():
         emit({"phase": "kernel", "check": key, "card": smi, **val})
 
@@ -505,10 +571,10 @@ def main() -> int:
     enc_s = statistics.median(times)
     cfg = port.EncoderConfig()
     raw_p, nr, nd, lb, db = enc._prep_signal(signal, cfg)
-    mode, st = enc._plan_search(cfg, lb // cfg.range_size, db)
+    plan = enc._plan_search(cfg, lb // cfg.range_size, db)
     raw = torch.from_numpy(raw_p).to(dev)
     core_span_ms = cuda_ms(
-        lambda: enc.encode_core(raw, len(signal), nr, nd, lb, db, cfg, mode, st), reps=5
+        lambda: enc.encode_core(raw, len(signal), nr, nd, lb, db, cfg, *plan), reps=5
     )
     emit({"phase": "slice", "card": smi, "seconds_audio": len(signal) / sr,
           "n_ranges": n_ranges, "sentinels": sentinels, "snr_db": snr,
@@ -519,14 +585,22 @@ def main() -> int:
 
     damped_launches = damped_slice(port, kernels, enc, dev, smi, signal, sr, sw)
     by_path = {"balanced": launches, "damped": damped_launches,
-               **stream_phase(port, kernels, smi, stream_sig)}
+               **stream_phase(port, kernels, smi, stream_sig),
+               **packed_phase(port, kernels, enc, smi),
+               **staged_phase(port, kernels, smi),
+               "multichannel": multichannel_phase(port, kernels, smi)}
 
-    def summary(key, prefix, main_check):
+    def summary(key, prefix, main_check, stack_check):
         """Launches of every path; times and bound at the main path's
-        shape; the largest error of all checks."""
+        shape and for a stack of 16 files in one launch; the largest error
+        of all checks."""
         err = max(v["max_abs_err"] for k, v in checks.items() if k.startswith(prefix))
         main = checks[main_check]
-        return {"launches": sum(p[key] for p in by_path.values()),
+        stack = checks[stack_check]
+        return {"stack16": {k: stack[k] for k in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                    "single_launch_ms", "stack_over_singles")},
+                "launches": sum(p[key] for p in by_path.values()),
                 "launches_by_path": {name: p[key] for name, p in by_path.items()},
                 "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -538,19 +612,19 @@ def main() -> int:
         {"name": "search_scan (K1)", "route": "cuda",
          "source": "fwav_tpu_torch/csrc/search_scan.cu",
          "replaces": "fwav_tpu/ops/pallas_search.py:67",
-         **summary("search_scan", "k1_", "k1_coarse")},
+         **summary("search_scan", "k1_", "k1_coarse", "k1_stack16_balanced")},
         {"name": "refine_window (K2)", "route": "cuda",
          "source": "fwav_tpu_torch/csrc/refine_window.cu",
          "replaces": "fwav_tpu/ops/pallas_search.py:301",
-         **summary("refine_window", "k2_", "k2_balanced")},
+         **summary("refine_window", "k2_", "k2_balanced", "k2_stack16_balanced")},
         {"name": "window_stats (K2's per-position table)", "route": "cuda",
          "source": "fwav_tpu_torch/csrc/refine_window.cu",
          "replaces": "fwav_tpu/ops/pallas_search.py:301",
-         **summary("window_stats", "ws_", "ws_balanced")},
+         **summary("window_stats", "ws_", "ws_balanced", "ws_stack16_balanced")},
         {"name": "topc_scan (K3)", "route": "cuda",
          "source": "fwav_tpu_torch/csrc/topc_scan.cu",
          "replaces": "fwav_tpu/ops/pallas_search.py:141",
-         **summary("topc_scan", "k3_", "k3_damped")},
+         **summary("topc_scan", "k3_", "k3_damped", "k3_stack16_damped")},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -628,10 +702,10 @@ def damped_slice(port, kernels, enc, dev, smi, signal, sr, sw):
         lrec, lbank, ln, lrs, original_len=lolen, s_damping=hint, device="cuda"), reps=5)
     cfg = port.EncoderConfig(objective="damped")
     raw_p, nr, nd, lb, db = enc._prep_signal(signal, cfg)
-    mode, st = enc._plan_search(cfg, lb // cfg.range_size, db)
+    plan = enc._plan_search(cfg, lb // cfg.range_size, db)
     raw = torch.from_numpy(raw_p).to(dev)
     core_span_ms = cuda_ms(
-        lambda: enc.encode_core(raw, len(signal), nr, nd, lb, db, cfg, mode, st), reps=5
+        lambda: enc.encode_core(raw, len(signal), nr, nd, lb, db, cfg, *plan), reps=5
     )
     emit({"phase": "damped", "card": smi, "seconds_audio": len(signal) / sr,
           "n_ranges": n_ranges, "sentinels": sentinels, "decode_hint": hint,
@@ -684,6 +758,31 @@ def stream_kernel_checks(kernels, enc, dev, sig, checks):
             kernels, f"K2 shard 4 lobes {objective}", k2, plain_reps=3, plain_warmup=1)
 
 
+def staged_kernel_checks(port, kernels, enc, dev, checks):
+    """K1 (balanced: one lobe) and K3 (damped: four) at the shapes the
+    staged single-shot paths of STAGED give them: the bucketed ranges x the
+    stride-subsampled rows of the full bank, at the path's taps per range
+    (60 s: 786,432 x 24,576 x 4; tile 512: 114,688 x 7,168 x 4; tile 2048:
+    57,344 x 1,792 x 8), each against its plain version on the card."""
+    slow = {"plain_reps": 3, "plain_warmup": 1}
+    for seed, (name, case) in enumerate(STAGED.items()):
+        cfg = port.EncoderConfig(**case["kw"])
+        n = cfg.range_size
+        n_samples = int(case["seconds"] * 44100)
+        mb = enc.bucket(-(-n_samples // n), 256)
+        db = enc.bucket(enc.n_domains_for(n_samples, cfg.tile_size, cfg.domain_step), 256)
+        mode, stride, refine = enc._plan_search(cfg, mb, db)
+        if (mode, refine) != ("coarse", "staged"):
+            raise AssertionError(f"staged {name}: the plan is {(mode, stride, refine)}")
+        args = kernel_inputs(dev, 400 + seed, mb, db // stride, cfg.objective, N=n)
+        if cfg.objective == "damped":
+            checks[f"k3_staged_{name}"] = k3_check(
+                kernels, f"K3 staged {name}", args, 16384, **slow)
+        else:
+            checks[f"k1_staged_{name}"] = k1_check(
+                kernels, f"K1 staged {name}", args, False, 16384, **slow)
+
+
 def stream_run(port, kernels, sig, reps, **kw):
     """compress_audio_streaming on the card `reps` times; the first run's
     launches, its result and stats; host-clock seconds of every run."""
@@ -726,21 +825,13 @@ def stream_damped_decode(port, tmp, name, sig, res, device="cuda"):
 
 def stream_profile(port, sig, **kw):
     """One 100 s streaming encode under torch.profiler: its result, and the
-    card's busy time (the summed durations of its kernels and copies, ms)
-    beside the profiled run's host-clock seconds. The kernels launched
-    through ctypes are not attributed to the `stream.*` ranges, so a
-    phase's busy time is taken as the difference of two encodes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = port.compress_audio_streaming(sig, 44100, 2, device="cuda", **kw)
-        wall = time.perf_counter() - t0
-    dev = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and not e.name.startswith("stream.")]
-    return res, {"profiled_wall_s": wall, "device_events": len(dev),
-                 "device_ms": sum(e.time_range.elapsed_us() for e in dev) / 1e3}
+    card's busy time beside the profiled run's host-clock seconds. The
+    kernels launched through ctypes are not attributed to the `stream.*`
+    ranges, so a phase's busy time is taken as the difference of two
+    encodes."""
+    res, device_ms, wall, events = busy_ms(
+        lambda: port.compress_audio_streaming(sig, 44100, 2, device="cuda", **kw))
+    return res, {"profiled_wall_s": wall, "device_events": events, "device_ms": device_ms}
 
 
 def stream_phase(port, kernels, smi, sig):
@@ -839,6 +930,423 @@ def stream_phase(port, kernels, smi, sig):
         emit({"phase": "stream_mid", "objective": objective, "n_ranges": len(cpu),
               "idx_diff_vs_host": diff})
     return out
+
+
+#: Files of one stack in the packed phases (fwav_tpu_torch PACK_B_MAX).
+PACK_FILES = 16
+
+
+def stack_kernel_checks(kernels, enc, dev, sig, checks):
+    """A stack of PACK_FILES files in one launch of each kernel: equal bit
+    for bit to the single launches, held to the plain versions' loop over
+    the files (0 differing rows), timed, with the bound of all its files."""
+    import numpy as np
+    import torch
+
+    from fwav_tpu_torch.ops import near_tie
+
+    B = PACK_FILES
+    slow = {"plain_reps": 3, "plain_warmup": 1}
+
+    def scan_files(seed, M, D, objective):
+        """Per-file scan inputs, each file's valid prefix of its own
+        length, and the same with a leading file axis."""
+        files = []
+        for b in range(B):
+            f = list(kernel_inputs(dev, seed + b, M, D, objective))
+            f[3] = torch.arange(D, device=dev) < D - 37 - 11 * b
+            files.append(f)
+        stack = [None if files[0][k] is None else torch.stack([f[k] for f in files])
+                 for k in range(5)]
+        return files, stack
+
+    def same_as_singles(name, got, singles):
+        for b, one in enumerate(singles):
+            for g, o in zip(got, one):
+                if not torch.equal(g[b], o):
+                    raise AssertionError(f"{name}: file {b} of the stack differs from "
+                                         "its single launch")
+
+    def stack_numbers(check, name, fn, single_fn, plain_fn, timer=kernel_ms, **plain_timing):
+        if check["idx_diff"]:
+            raise AssertionError(f"{name}: {check['idx_diff']} rows differ from the plain "
+                                 "version")
+        single_ms = timer(single_fn)
+        out = timed(check, fn, plain_fn, timer=timer, **plain_timing)
+        return {**out, "files": B, "single_launch_ms": single_ms,
+                "stack_over_singles": out["ms"] / (B * single_ms)}
+
+    def k1_stack(key, name, seed, M, D, objective, range_block):
+        clip = objective == "damped"
+        files, st = scan_files(seed, M, D, objective)
+        kw = {"s_clip": 16.0} if clip else {}
+        cut = (lambda a: a) if clip else (lambda a: a[:4])
+        got = kernels.search_scan(*cut(st), **kw)
+        same_as_singles(name, got, [kernels.search_scan(*cut(f), **kw) for f in files])
+        want = kernels.search_scan_ref(*cut(st), **kw, range_block=range_block)
+        check = {**near_tie.check_argmax(name, [x.reshape(-1) for x in got],
+                                         [x.reshape(-1) for x in want]),
+                 "shape": [B, M, D],
+                 **scan_bound(M, 4, int(st[3].sum()), D, 8, clip, files=B)}
+        checks[key] = stack_numbers(
+            check, name, lambda: kernels.search_scan(*cut(st), **kw),
+            lambda: kernels.search_scan(*cut(files[0]), **kw),
+            lambda: kernels.search_scan_ref(*cut(st), **kw, range_block=range_block), **slow)
+
+    M, D = 114688, 3584
+    k1_stack("k1_stack16_balanced", "K1 stack of 16", 100, M, D, "balanced", 16384)
+    k1_stack("k1_stack16_exact_damped", "K1 exact damped stack of 16", 120, 8192, 24576,
+             "damped", 8192)
+
+    # K3, damped, C = 4
+    files, st = scan_files(140, M, D, "damped")
+
+    def k3(a):  # topc_scan's arguments: C = 4, s_clip 16
+        return (a[0], a[1], a[2], a[3], 4, a[4], 16.0)
+
+    lists = kernels.topc_scan(*k3(st))
+    same_as_singles("K3 stack of 16", (lists,), [(kernels.topc_scan(*k3(f)),) for f in files])
+    want = kernels.topc_scan_ref(*k3(st), range_block=16384)
+
+    def gain(idx, rows):  # float64 gains of lists on rows of the flattened stack
+        out = np.empty(idx.shape, np.float64)
+        for b in np.unique(rows // M):
+            at = np.nonzero(rows // M == b)[0]
+            r_c, bank_t, w, _, thresh = (x.cpu().numpy() for x in files[b])
+            out[at] = near_tie.topc_gain64(r_c[rows[at] % M], bank_t, w, thresh, 16.0, idx[at])
+        return out
+
+    check = {**near_tie.check_lists("K3 stack of 16", lists.reshape(B * M, 4),
+                                    want.reshape(B * M, 4), gain),
+             "shape": [B, M, D, 4], **scan_bound(M, 4, int(st[3].sum()), D, 16, True, files=B)}
+    checks["k3_stack16_damped"] = stack_numbers(
+        check, "K3 stack of 16", lambda: kernels.topc_scan(*k3(st)),
+        lambda: kernels.topc_scan(*k3(files[0])),
+        lambda: kernels.topc_scan_ref(*k3(st), range_block=16384), **slow)
+
+    # K2 and its table: each file's box means are the 10 s signal rolled by
+    # its own offset; n_valid differs per file
+    stride, block_len = 128, 256
+    n_valid = [439977 - 1000 * b for b in range(B)]
+    raw = np.stack([np.roll(sig, 4099 * b) for b in range(B)])
+    raw_norm = torch.from_numpy(raw / np.abs(sig).max()).to(dev)
+    means_ext, _ = enc._means_setup(raw_norm, 4, block_len, stride, D)
+    L = int(means_ext.shape[1])
+    rng = np.random.default_rng(8)
+    ranges = torch.from_numpy(rng.standard_normal((B, M, 4)).astype(np.float32) * 0.3).to(dev)
+    lobes1 = torch.from_numpy(rng.integers(-1, D - 3, (B, M)).astype(np.int32)).to(dev)
+    lobes4 = lists  # (B, M, 4), K3's layout: the view of its (B, 4, M) output
+    lobes4[:, ::97] = -1
+    lobes4[:, 1::53, 2:] = -1
+    lobes4[:, 2::31, 3] = lobes4[:, 2::31, 0]
+    for key, name, lobes, objective in (
+            ("k2_stack16_balanced", "K2 stack of 16", lobes1, "balanced"),
+            ("k2_stack16_lobes4_damped", "K2 4 lobes stack of 16", lobes4, "damped")):
+        geo = (stride, block_len, objective, 16.0)
+        got = kernels.refine_window(means_ext, lobes, ranges, n_valid, *geo)
+        same_as_singles(name, got, [
+            kernels.refine_window(means_ext[b], lobes[b], ranges[b], n_valid[b], *geo)
+            for b in range(B)])
+        want = kernels.refine_window_ref(means_ext, lobes, ranges, n_valid, *geo)
+        check = near_tie.check_argmax(name, [x.reshape(-1) for x in got],
+                                      [x.reshape(-1) for x in want])
+        if check["max_abs_err"]:
+            raise AssertionError(f"{name}: scores differ from the plain version: {check}")
+        check = {**check, "shape": [*lobes.shape, L],
+                 **stack_refine_bound(lobes, 4, L, objective, stride)}
+        checks[key] = stack_numbers(
+            check, name,
+            lambda: kernels.refine_window(means_ext, lobes, ranges, n_valid, *geo),
+            lambda: kernels.refine_window(means_ext[0], lobes[0], ranges[0], n_valid[0], *geo),
+            lambda: kernels.refine_window_ref(means_ext, lobes, ranges, n_valid, *geo),
+            timer=graph_ms, **slow)
+        table = kernels.window_stats(means_ext, 4, block_len, objective)
+        if not torch.equal(table, kernels.window_stats_ref(means_ext, 4, block_len, objective)):
+            raise AssertionError(f"{name}: the stack's table differs from the plain version")
+        same_as_singles(name + " table", (table,), [
+            (kernels.window_stats(means_ext[b], 4, block_len, objective),) for b in range(B)])
+        bnd = stats_bound(4, L, objective)
+        terms = {k: v * B for k, v in bnd["bound_terms_ms"].items()}
+        check = {"rows": B * L, "idx_diff": 0, "max_abs_err": 0.0, "shape": [B, L],
+                 **bound(terms)}
+        checks[key.replace("k2_", "ws_")] = stack_numbers(
+            check, name + " table",
+            lambda: kernels.window_stats(means_ext, 4, block_len, objective),
+            lambda: kernels.window_stats(means_ext[0], 4, block_len, objective),
+            lambda: kernels.window_stats_ref(means_ext, 4, block_len, objective),
+            timer=graph_ms)
+
+
+def packed_signals(seconds, count, seed0=0):
+    """`count` files of one length: bench.make_signal scaled by a seeded
+    gain in [0.6, 1) and dithered with seeded noise (std 20 of the 16-bit
+    scale), rounded, so that each is 16-bit content of its own."""
+    import numpy as np
+
+    from bench import make_signal
+
+    base = make_signal(seconds)
+    out = []
+    for k in range(count):
+        rng = np.random.default_rng(seed0 + k)
+        gain = 0.6 + 0.4 * rng.random()
+        out.append(np.round(base * gain + rng.normal(0, 20, len(base))).astype(np.float32))
+    return out
+
+
+def busy_ms(fn):
+    """fn() under torch.profiler: (its result, the card's busy time as the
+    summed durations of its kernels and copies in ms, host-clock seconds,
+    the count of those device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and not e.name.startswith("stream.")]
+    return res, sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall, len(dev)
+
+
+def same_result(a, b) -> bool:
+    """Two compress_audio_arrays-shaped results: records, bank and header
+    equal exactly."""
+    import numpy as np
+
+    return (np.array_equal(a[0].view(np.uint8), b[0].view(np.uint8))
+            and np.array_equal(a[1], b[1]) and tuple(a[2:]) == tuple(b[2:]))
+
+
+def packed_phase(port, kernels, enc, smi):
+    """compress_audio_packed on the card against the single-file encodes;
+    returns the launch counts of its three paths."""
+    import torch
+
+    out = {}
+    ten = packed_signals(10.0, PACK_FILES)
+    cases = [("packed_balanced", ten + packed_signals(7.0, 1, seed0=99), {}, "search_scan", 2),
+             ("packed_damped", ten + packed_signals(7.0, 1, seed0=99),
+              {"objective": "damped"}, "topc_scan", 2),
+             ("packed_exact", packed_signals(0.5, PACK_FILES, seed0=200), {}, "search_scan", 1),
+             # a stack whose refine is the staged one, file by file after one K3 launch
+             ("packed_staged", ten + packed_signals(7.0, 1, seed0=99),
+              {"tile_size": 512, "objective": "damped"}, "topc_scan", 2)]
+    for phase, sigs, kw, scan, stacks in cases:
+        cfg = port.EncoderConfig(**kw)
+        _, _, _, lb, db = enc._prep_signal(sigs[0], cfg)
+        plan = enc._plan_search(cfg, lb // cfg.range_size, db)
+        port.compress_audio_packed(sigs, 44100, 2, device="cuda", **kw)  # warm
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        packed = port.compress_audio_packed(sigs, 44100, 2, device="cuda", **kw)
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        other = "topc_scan" if scan == "search_scan" else "search_scan"
+        k2 = stacks if plan[2] == "window" else 0
+        if (plan[2] == "staged") != (phase == "packed_staged"):
+            raise AssertionError(f"{phase}: the plan is {plan}")
+        want = {scan: stacks, other: 0, "refine_window": k2, "window_stats": k2}
+        if launches != want:
+            raise AssertionError(f"{phase}: launches {launches}, expected one of each kernel "
+                                 f"per stack: {want}")
+        singles = [port.compress_audio_arrays(s, 44100, 2, device="cuda", **kw) for s in sigs]
+        differ = [i for i, (a, b) in enumerate(zip(packed, singles)) if not same_result(a, b)]
+        if differ:
+            raise AssertionError(f"{phase}: files {differ} differ from their single encodes")
+        live = sum(int((r[0]["idx"] >= 0).sum()) for r in packed)
+        if not live:
+            raise AssertionError(f"{phase}: no live range")
+        stack = sigs[:PACK_FILES]
+        stack_s, single_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            port.compress_audio_packed(stack, 44100, 2, device="cuda", **kw)
+            stack_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for sg in stack:
+                port.compress_audio_arrays(sg, 44100, 2, device="cuda", **kw)
+            single_s.append(time.perf_counter() - t0)
+        stack_busy = busy_ms(
+            lambda: port.compress_audio_packed(stack, 44100, 2, device="cuda", **kw))[1]
+        single_busy = busy_ms(
+            lambda: [port.compress_audio_arrays(sg, 44100, 2, device="cuda", **kw)
+                     for sg in stack])[1]
+        t0 = time.perf_counter()
+        for sg in stack:
+            enc.build_domains_host(sg, cfg.tile_size, cfg.range_size, cfg.domain_step)
+        host_bank_s = time.perf_counter() - t0
+        seconds = sum(len(sg) for sg in stack) / 44100
+        out[phase] = launches
+        emit({"phase": phase, "card": smi, "files": len(sigs), "plan": list(plan),
+              "stacks": stacks, "launches": launches, "files_equal_to_single": len(sigs),
+              "live_ranges": live, "stack_files": len(stack), "stack_seconds_audio": seconds,
+              "stack_wall_s_median3": statistics.median(stack_s),
+              "singles_wall_s_median3": statistics.median(single_s),
+              "stack_x_realtime": seconds / statistics.median(stack_s),
+              "singles_x_realtime": seconds / statistics.median(single_s),
+              "stack_busy_ms": stack_busy, "singles_busy_ms": single_busy,
+              "host_bank_build_s": host_bank_s, "peak_mem_mb": peak})
+    return out
+
+
+def staged_phase(port, kernels, smi):
+    """The single-shot geometries that take the staged refine, on the card:
+    held to the JAX CPU run's numbers (STAGED) and to the host's plain run;
+    K2 must not launch. Returns the launch counts per case."""
+    import numpy as np
+    import torch
+
+    from bench import make_signal
+    from fwav_tpu_torch.ops import near_tie
+
+    out = {}
+    for name, case in STAGED.items():
+        sig = make_signal(case["seconds"])
+        kw = case["kw"]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
+        first_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        scan = "topc_scan" if kw.get("objective") == "damped" else "search_scan"
+        if launches[scan] != 1 or launches["refine_window"] or launches["window_stats"]:
+            raise AssertionError(f"staged {name}: launches {launches}")
+        rec, bank, n_ranges, rs, *_, olen = res
+        sentinels = int((rec["idx"] < 0).sum())
+        if n_ranges != case["n_ranges"] or sentinels != case["sentinels"]:
+            raise AssertionError(f"staged {name}: {sentinels} sentinels in {n_ranges} ranges")
+        recon = port.decompress_audio(rec, bank, n_ranges, rs, original_len=olen,
+                                      device="cuda", **case["decode"])
+        if not np.isfinite(recon).all() or recon.shape != sig.shape:
+            raise AssertionError(f"staged {name}: the decode is not finite or has the wrong "
+                                 "length")
+        snr = port.compute_snr(sig, recon)
+        if abs(snr - case["snr_db"]) > SNR_TOL_DB:
+            raise AssertionError(f"staged {name}: SNR {snr} dB, expected {case['snr_db']} "
+                                 f"+/- {SNR_TOL_DB}")
+        t0 = time.perf_counter()
+        port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec_cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu", **kw)[0]
+        host_s = time.perf_counter() - t0
+        if not np.array_equal(rec_cpu["idx"] < 0, rec["idx"] < 0):
+            raise AssertionError(f"staged {name}: the card's and the host's sentinel sets differ")
+        cpu_diff = int((rec_cpu["idx"] != rec["idx"]).sum())
+        if cpu_diff > near_tie.allowed_diffs(n_ranges):
+            raise AssertionError(f"staged {name}: {cpu_diff} idx differ between card and host")
+        out[f"staged_{name}"] = launches
+        emit({"phase": "staged", "case": name, "card": smi, "seconds_audio": case["seconds"],
+              "config": kw, "n_ranges": n_ranges, "sentinels": sentinels, "snr_db": snr,
+              "snr_db_jax_cpu": case["snr_db"], "launches": launches,
+              "idx_diff_vs_host": cpu_diff, "encode_s_first": first_s, "encode_s_second": enc_s,
+              "x_realtime": case["seconds"] / enc_s, "host_encode_s": host_s,
+              "peak_mem_mb": peak})
+    return out
+
+
+def multichannel_phase(port, kernels, smi):
+    """A stereo pair through mid/side, one damped packed call for both
+    channels, the v3 container with the decode hint, the hinted decode on
+    the card and the inverse transform, against the same pipeline on the
+    host; then a segment against the slice of the full decode. Returns the
+    encode's launch counts."""
+    import numpy as np
+
+    from fwav_tpu_torch.io import multich
+    from fwav_tpu_torch.ops import near_tie
+
+    left, other = packed_signals(10.0, 2, seed0=300)
+    stereo = np.stack([left, np.round(0.7 * left + 0.3 * other)], axis=1).astype(np.float32)
+    ms = multich.ms_forward(stereo)
+    chans = [np.ascontiguousarray(ms[:, c]) for c in range(2)]
+
+    def pipeline(device, tmp):
+        kernels.reset_launch_counts()
+        enc_res = port.compress_audio_packed(chans, 44100, 2, objective="damped",
+                                             device=device)
+        launches = dict(kernels.LAUNCHES)
+        tuples = []
+        for rec, bank, _, rs, tile, step, thr, olen in enc_res:
+            prec, pbank = port.prune_bank(rec, bank)
+            tuples.append((prec, pbank, rs, 44100, 2, tile, step, thr, olen))
+        path = Path(tmp) / f"stereo_{device}.fwav"
+        port.save_compressed_multi(path, tuples, transform=multich.TRANSFORM_MS,
+                                   decode_damping=port.DAMPED_DECODE_DAMPING)
+        data = path.read_bytes()
+        hint = multich.multi_decode_hint(data)
+        if hint != port.DAMPED_DECODE_DAMPING:
+            raise AssertionError(f"multichannel: the decode hint read back is {hint}")
+        loaded, transform = port.load_compressed_multi(path)
+        if transform != multich.TRANSFORM_MS or len(loaded) != 2:
+            raise AssertionError("multichannel: the container did not keep its channels")
+        stats = [{}, {}]
+        dec = [port.decompress_audio(c[0], c[1], c[2], c[3], original_len=c[9],
+                                     s_damping=hint, stats=st, device=device)
+               for c, st in zip(loaded, stats)]
+        recon = multich.ms_inverse(np.stack(dec, axis=1))
+        snr = [port.compute_snr(stereo[:, c], recon[:, c]) for c in range(2)]
+        return enc_res, launches, loaded, hint, recon, snr, stats, len(data)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gpu = pipeline("cuda", tmp)
+        cpu = pipeline("cpu", tmp)
+    enc_res, launches, loaded, hint, recon, snr, stats, size = gpu
+    if launches != {"search_scan": 0, "topc_scan": 1, "refine_window": 1, "window_stats": 1}:
+        raise AssertionError(f"multichannel: both channels are one stack, launches {launches}")
+    if not np.isfinite(recon).all() or recon.shape != stereo.shape:
+        raise AssertionError("multichannel: the decode is not finite or has the wrong shape")
+    diffs = []
+    for c in range(2):
+        a, b = enc_res[c][0]["idx"], cpu[0][c][0]["idx"]
+        if not np.array_equal(a < 0, b < 0):
+            raise AssertionError(f"multichannel: channel {c}'s sentinel sets differ from the host")
+        diffs.append(int((a != b).sum()))
+        if diffs[-1] > near_tie.allowed_diffs(len(a)):
+            raise AssertionError(f"multichannel: channel {c}: {diffs[-1]} idx differ from the host")
+        if abs(snr[c] - cpu[5][c]) > SNR_TOL_DB:
+            raise AssertionError(f"multichannel: channel {c} SNR {snr[c]} dB on the card, "
+                                 f"{cpu[5][c]} dB on the host")
+
+    # a segment of the mid channel: bit-equal to the slice at s_damping=0;
+    # on the loop bit-equal when both run the same count of iterations
+    # (convergence_eps=0), and within SEGMENT_RTOL of the peak at the hint's
+    # default stop test (the delta is over the chunk that is decoded)
+    rec, bank, n, rs, *_, olen = loaded[0]
+    a, b = 3 * 44100 + 17, 5 * 44100 + 3
+    full0 = port.decompress_audio(rec, bank, n, rs, original_len=olen, device="cuda")
+    seg0 = port.decompress_segment(rec, bank, n, rs, a, b, original_len=olen, device="cuda")
+    if not np.array_equal(seg0, full0[a:b]):
+        raise AssertionError("segment: differs from the slice of the full decode at s_damping=0")
+    loop = dict(original_len=olen, s_damping=hint, device="cuda")
+    fixed = dict(loop, convergence_eps=0.0)
+    if not np.array_equal(
+            port.decompress_segment(rec, bank, n, rs, a, b, **fixed),
+            port.decompress_audio(rec, bank, n, rs, **fixed)[a:b]):
+        raise AssertionError("segment: differs from the slice on the loop at 8 iterations")
+    seg_stats = {}
+    seg = port.decompress_segment(rec, bank, n, rs, a, b, stats=seg_stats, **loop)
+    full = port.decompress_audio(rec, bank, n, rs, **loop)
+    seg_err = float(np.max(np.abs(seg - full[a:b])))
+    peak_abs = float(np.max(np.abs(full)))
+    if seg_err > SEGMENT_RTOL * peak_abs:
+        raise AssertionError(f"segment: max err {seg_err} on the loop, peak {peak_abs}")
+    emit({"phase": "multichannel", "card": smi, "seconds_audio": len(stereo) / 44100,
+          "transform": "mid/side", "launches": launches, "decode_hint": hint,
+          "snr_db_left_right": snr, "snr_db_left_right_host": cpu[5],
+          "idx_diff_vs_host_mid_side": diffs, "decode_stats": stats, "v3_bytes": size,
+          "v3_bytes_host": cpu[7],
+          "segment": {"samples": [a, b], "equal_at_s_damping_0": True,
+                      "equal_on_the_loop_at_8_iterations": True,
+                      "max_abs_err_on_the_loop": seg_err, "peak_abs": peak_abs,
+                      "iterations_segment": seg_stats["iterations"],
+                      "iterations_full": stats[0]["iterations"]}})
+    return launches
+
 
 
 if __name__ == "__main__":

@@ -7,24 +7,36 @@ never jax or fwav_tpu. Entry points take an explicit `device`: "cuda" by
 default; "cpu" runs the kernels' plain PyTorch versions.
 """
 
-from .config import DAMPED_DECODE_DAMPING, FWAV_VERSION, DecoderConfig, EncoderConfig
+from .config import (
+    DAMPED_DECODE_DAMPING,
+    FWAV_VERSION,
+    TOP_K,
+    DecoderConfig,
+    EncoderConfig,
+)
 from .io import (
     MATCH_DTYPE,
     load_compressed,
     load_compressed_arrays,
     load_compressed_compact,
+    load_compressed_multi,
     parse_decode_hint,
+    read_wav,
     read_wav_mono,
     save_compressed,
     save_compressed_compact,
+    save_compressed_multi,
     save_compressed_streaming,
     write_wav,
 )
 from .models import (
+    PACK_B_MAX,
     compress_audio,
     compress_audio_arrays,
+    compress_audio_packed,
     compress_audio_streaming,
     decompress_audio,
+    decompress_segment,
     prune_bank,
 )
 from .utils import compute_snr
@@ -32,10 +44,12 @@ from .utils import compute_snr
 __version__ = "0.1.0"
 
 __all__ = [
-    "DAMPED_DECODE_DAMPING", "FWAV_VERSION", "DecoderConfig", "EncoderConfig",
-    "MATCH_DTYPE", "compress_audio", "compress_audio_arrays",
-    "compress_audio_streaming", "compute_snr", "decompress_audio",
-    "load_compressed", "load_compressed_arrays", "load_compressed_compact",
-    "parse_decode_hint", "prune_bank", "read_wav_mono", "save_compressed",
-    "save_compressed_compact", "save_compressed_streaming", "write_wav",
+    "DAMPED_DECODE_DAMPING", "FWAV_VERSION", "PACK_B_MAX", "TOP_K", "DecoderConfig",
+    "EncoderConfig", "MATCH_DTYPE", "compress_audio", "compress_audio_arrays",
+    "compress_audio_packed", "compress_audio_streaming", "compute_snr",
+    "decompress_audio", "decompress_segment", "load_compressed",
+    "load_compressed_arrays", "load_compressed_compact", "load_compressed_multi",
+    "parse_decode_hint", "prune_bank", "read_wav", "read_wav_mono", "save_compressed",
+    "save_compressed_compact", "save_compressed_multi", "save_compressed_streaming",
+    "write_wav",
 ]

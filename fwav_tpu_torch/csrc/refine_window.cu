@@ -49,7 +49,8 @@
 // on (score, then the smaller lobe-major key). The arithmetic uses
 // explicit round-to-nearest intrinsics in the TPU kernel's order, so both
 // kernels compute bit for bit what the plain PyTorch versions
-// (ops/kernels.py refine_window_ref, window_stats_ref) compute.
+// (ops/kernels.py refine_window_ref, window_stats_ref) compute. A stack of
+// up to 16 files is one launch of each kernel (FileCounts below).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -59,6 +60,18 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kV = 4;        // neighbouring positions a lane scores per step
 constexpr int kG = 8;        // lanes that share a range
+constexpr int kMaxFiles = 16;  // files of one launch (a stack)
+
+// Both kernels take a stack of files: every array has a leading file axis
+// and blockIdx.y (the slowest grid axis) is the file. A block reads its own
+// file's rows only, and nothing else of it depends on the file, so a file's
+// result does not depend on the stack it is in; a single file is a stack of
+// one. The files of a stack share every size but n_valid, which rides the
+// launch arguments by value (a plain parameter: as __grid_constant__ it made
+// ptxas spill 8 bytes at N = 5, damped).
+struct FileCounts {
+  int n_valid[kMaxFiles];
+};
 
 enum Objective { kBalanced = 0, kAffine = 1, kDamped = 2 };
 
@@ -70,6 +83,8 @@ __global__ void __launch_bounds__(kThreads) window_stats_kernel(
     float inv_n, float* __restrict__ out) {
   const int q = blockIdx.x * kThreads + threadIdx.x;
   if (q >= L) return;
+  means += (size_t)blockIdx.y * L;
+  out += (size_t)blockIdx.y * L;
   float v[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -98,7 +113,9 @@ __global__ void __launch_bounds__(kThreads) window_stats_kernel(
 
 // --- scoring ----------------------------------------------------------------
 
-// kV neighbouring floats at p[q .. q + kV). CHECKED: zeros from index L on.
+// kV neighbouring floats at p[q .. q + kV). CHECKED: zeros from index L on
+// (for a file of a stack, q and L are indices of the stack's array: the
+// file's own, each plus the file's start).
 // `vec`: q is a multiple of kV, p is aligned to kV floats and L is a
 // multiple of kV, so one 16-byte load is wholly inside or wholly outside.
 template <bool CHECKED>
@@ -171,18 +188,25 @@ __device__ __forceinline__ void score_window(
 template <int N, int OBJ>
 __global__ void __launch_bounds__(kThreads) refine_window_kernel(
     const float* __restrict__ means, const float* __restrict__ stats, int L,
-    const int* __restrict__ lobes, int C, int lobe_stride_m, int lobe_stride_c,
-    const float* __restrict__ ranges, int M, int n_valid, int stride,
-    int block_len, int W, float c, bool vec, float* __restrict__ out_score,
+    const int* __restrict__ lobes, int C, int lobe_stride_b,
+    int lobe_stride_m, int lobe_stride_c, const float* __restrict__ ranges,
+    int M, FileCounts counts, int stride, int block_len,
+    int W, float c, bool vec, float* __restrict__ out_score,
     int* __restrict__ out_idx) {
+  const int file = blockIdx.y;
+  const int n_valid = counts.n_valid[file];
+  // the file's sequence and table start at index base of the stack's: the
+  // offset rides the window's index, so both pointers stay launch arguments
+  const int base = file * L;
   const int m = (blockIdx.x * kThreads + threadIdx.x) / kG;
   const int g = threadIdx.x % kG;
   const bool active = m < M;  // every lane stays for the shuffles
   const int mm = active ? m : M - 1;
+  const int fm = file * M + mm;  // the range's row in the stack
 
   float rc[N];
 #pragma unroll
-  for (int j = 0; j < N; ++j) rc[j] = ranges[(size_t)mm * N + j];
+  for (int j = 0; j < N; ++j) rc[j] = ranges[(size_t)fm * N + j];
   float rs = rc[0];
 #pragma unroll
   for (int j = 1; j < N; ++j) rs = __fadd_rn(rs, rc[j]);
@@ -192,7 +216,8 @@ __global__ void __launch_bounds__(kThreads) refine_window_kernel(
 
   const int half = W / 2;
   const int reach = W + (N - 1) * block_len;  // indices a window's taps span
-  const int* my_lobes = lobes + (size_t)mm * lobe_stride_m;
+  const int* my_lobes =
+      lobes + (size_t)file * lobe_stride_b + (size_t)mm * lobe_stride_m;
   float best = -CUDART_INF_F;
   int best_key = 0;  // lobe slot * W + t
   for (int slot = 0; slot < (active ? C : 0); ++slot) {
@@ -201,11 +226,11 @@ __global__ void __launch_bounds__(kThreads) refine_window_kernel(
     const int p0 = lobe * stride - half;  // position of t = 0
     const int q0 = p0 + stride;           // its index in means_ext
     if (W % kV == 0 && p0 >= 0 && p0 + W <= n_valid && q0 + reach <= L) {
-      score_window<N, OBJ, false>(means, stats, L, rc, q0, g * kV, 0, W,
+      score_window<N, OBJ, false>(means, stats, base + L, rc, base + q0, g * kV, 0, W,
                                   block_len, c, vec, slot * W, best, best_key);
     } else {  // positions inside [0, n_valid) only
-      score_window<N, OBJ, true>(means, stats, L, rc, q0, g * kV, max(0, -p0),
-                                 min(W, n_valid - p0), block_len, c, vec,
+      score_window<N, OBJ, true>(means, stats, base + L, rc, base + q0, g * kV,
+                                 max(0, -p0), min(W, n_valid - p0), block_len, c, vec,
                                  slot * W, best, best_key);
     }
   }
@@ -221,8 +246,8 @@ __global__ void __launch_bounds__(kThreads) refine_window_kernel(
   if (active && g == 0) {
     const int slot = best_key / W;
     const int lobe = max(my_lobes[(size_t)slot * lobe_stride_c], 0);
-    out_score[m] = best;
-    out_idx[m] = min(max(lobe * stride - half + (best_key - slot * W), 0),
+    out_score[fm] = best;
+    out_idx[fm] = min(max(lobe * stride - half + (best_key - slot * W), 0),
                      max(n_valid - 1, 0));
   }
 }
@@ -235,14 +260,15 @@ __global__ void __launch_bounds__(kThreads) refine_window_kernel(
 
 extern "C" {
 
-// means_ext (L,) float32, contiguous, on the device of `stream`; objective
+// means_ext (B, L) float32, contiguous, on the device of `stream`; objective
 // 0 balanced, 1 affine, 2 damped; inv_n the float32 the plain version
-// multiplies the tap sum by. Writes stats (L,) float32. Returns
+// multiplies the tap sum by. Writes stats (B, L) float32. Returns
 // cudaGetLastError() after the launch.
-int fwav_window_stats(const float* means_ext, int L, int N, int block_len,
+int fwav_window_stats(const float* means_ext, int B, int L, int N, int block_len,
                       int objective, float inv_n, float* stats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (L + kThreads - 1) / kThreads;
+  if (B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 blocks((L + kThreads - 1) / kThreads, B);
   switch (N) {
 #define FWAV_CASE(K)                                                       \
   case K:                                                                  \
@@ -257,19 +283,27 @@ int fwav_window_stats(const float* means_ext, int L, int N, int block_len,
   return static_cast<int>(cudaGetLastError());
 }
 
-// means_ext (L,) and its stats as fwav_window_stats wrote them for the same
-// N, block_len and objective; lobes int32, lobe `slot` of range m at
-// lobes[m * lobe_stride_m + slot * lobe_stride_c], C >= 1 slots; ranges
-// (M, N) float32 contiguous. Writes score (M,) float32 and idx (M,) int32.
-// Returns cudaGetLastError() after the launch.
-int fwav_refine_window(const float* means_ext, const float* stats, int L,
-                       const int* lobes, int C, int lobe_stride_m,
-                       int lobe_stride_c, const float* ranges, int M, int N,
-                       int n_valid, int stride, int block_len, int objective,
-                       float s_clip, float* score, int* idx, void* stream) {
+// A stack of B <= 16 files: means_ext (B, L) and its stats as
+// fwav_window_stats wrote them for the same N, block_len and objective;
+// lobes int32, lobe `slot` of range m of file b at lobes[b * lobe_stride_b +
+// m * lobe_stride_m + slot * lobe_stride_c], C >= 1 slots; ranges (B, M, N)
+// float32 contiguous; n_valid B ints on the host, one per file. Writes
+// score (B, M) float32 and idx (B, M) int32. Returns cudaGetLastError()
+// after the launch.
+int fwav_refine_window(const float* means_ext, const float* stats, int B, int L,
+                       const int* lobes, int C, long long lobe_stride_b,
+                       int lobe_stride_m, int lobe_stride_c, const float* ranges,
+                       int M, int N, const int* n_valid, int stride,
+                       int block_len, int objective, float s_clip, float* score,
+                       int* idx, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C < 1 || objective < 0 || objective > 2)
+  if (C < 1 || objective < 0 || objective > 2 || B < 1 || B > kMaxFiles ||
+      lobe_stride_b < 0 || lobe_stride_b > 0x7fffffffLL ||
+      static_cast<long long>(B) * L + stride + stride / 4 + N * block_len > 0x7fffffffLL ||
+      static_cast<long long>(B) * M > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
+  FileCounts counts{};
+  for (int b = 0; b < B; ++b) counts.n_valid[b] = n_valid[b];
   // 16-byte loads: every window and every tap starts on a multiple of kV
   const int W = stride + stride / 4;
   const bool vec =
@@ -277,14 +311,15 @@ int fwav_refine_window(const float* means_ext, const float* stats, int L,
       L % kV == 0 && reinterpret_cast<size_t>(means_ext) % (4 * kV) == 0 &&
       reinterpret_cast<size_t>(stats) % (4 * kV) == 0;
   constexpr int per_block = kThreads / kG;
-  const int blocks = (M + per_block - 1) / per_block;
+  const dim3 blocks((M + per_block - 1) / per_block, B);
   switch (N * 4 + objective) {
 #define FWAV_CASE_OBJ(K, OBJ)                                              \
   case K * 4 + OBJ:                                                        \
     refine_window_kernel<K, OBJ><<<blocks, kThreads, 0, st>>>(             \
-        means_ext, stats, L, lobes, C, lobe_stride_m, lobe_stride_c,       \
-        ranges, M, n_valid, stride, block_len, W, s_clip, vec, score,      \
-        idx);                                                              \
+        means_ext, stats, L, lobes, C, static_cast<int>(lobe_stride_b),    \
+        lobe_stride_m,                                                     \
+        lobe_stride_c, ranges, M, counts, stride, block_len, W, s_clip,    \
+        vec, score, idx);                                                  \
     break;
 #define FWAV_CASE(K)                                                       \
   FWAV_CASE_OBJ(K, kBalanced) FWAV_CASE_OBJ(K, kAffine) FWAV_CASE_OBJ(K, kDamped)

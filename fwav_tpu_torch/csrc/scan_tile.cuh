@@ -48,6 +48,9 @@
 //     double buffer, so tile k+1 loads while tile k is scored; the split
 //     and the margins are computed once per staged tile, the split into the
 //     B fragments' layout (one conflict-free 8-byte load per lane);
+//   * a stack of files is one launch: blockIdx.z is the file, and a block
+//     offsets its pointers once (file_args), so a file's picks do not depend
+//     on the stack it is in;
 //   * a tile whose domains are all valid takes the unmasked screen, a
 //     mixed one (the valid prefix's end, the bank's ragged end) a masked
 //     one: an invalid domain is never marked, so it never wins and never
@@ -87,15 +90,30 @@ struct Warp {
   static constexpr int kMinBlocks = 2;
 };
 
+// Every array has a leading file axis: a launch scans a stack of files,
+// each against its own bank, and blockIdx.z (the slowest grid axis) is the
+// file. A single file is a stack of one.
 struct ScanArgs {
-  const float* r_c;     // (M, N)
-  const float* bankT;   // (N, D)
-  const float* w;       // (D,)
-  const int8_t* valid;  // (D,)
-  const float* thresh;  // (D,), damped only
+  const float* r_c;     // (B, M, N)
+  const float* bankT;   // (B, N, D)
+  const float* w;       // (B, D)
+  const int8_t* valid;  // (B, D)
+  const float* thresh;  // (B, D), damped only
   float c;              // |s_clip|
   int M, D;
 };
+
+// The arguments of file `b` of the stack. Nothing below this call knows of
+// the stack: every tile, threshold and reduction stays inside one file.
+template <int N>
+__device__ __forceinline__ ScanArgs file_args(ScanArgs a, int b) {
+  a.r_c += (size_t)b * a.M * N;
+  a.bankT += (size_t)b * N * a.D;
+  a.w += (size_t)b * a.D;
+  a.valid += (size_t)b * a.D;
+  if (a.thresh != nullptr) a.thresh += (size_t)b * a.D;
+  return a;
+}
 
 // One staged tile: the raw copy (double-buffered, filled by cp.async), the
 // B fragments, margins and validity of the tile being screened, and the

@@ -22,7 +22,9 @@
 //     then a quad merge by (score descending, index ascending);
 //   * when the ranges alone cannot fill the card (the exact branch: few
 //     ranges, a large bank), blockIdx.y splits the domains and a second
-//     pass merges the partial bests in split order, keeping the rule.
+//     pass merges the partial bests in split order, keeping the rule;
+//   * blockIdx.z is the file of a stack (scan_tile.cuh): the splits and
+//     their merge stay inside a file.
 // Fragment layout: A rows 0-7 = 8 ranges, rows 8-15 = the same reversed,
 // so c0, c1 = num_o and c2, c3 = num_m of range g for domains 2t, 2t+1.
 
@@ -62,10 +64,13 @@ struct ArgmaxKeep {
 template <int N, bool kClip>
 __global__ void __launch_bounds__(fwav::Warp<N, 1>::kThreads,
                                   fwav::Warp<N, 1>::kMinBlocks)
-    search_scan_kernel(ScanArgs a, int d_per_split, float* __restrict__ out_score,
+    search_scan_kernel(ScanArgs stack, int d_per_split, float* __restrict__ out_score,
                        int* __restrict__ out_idx) {
   constexpr int MT = fwav::Warp<N, 1>::kMT;
   __shared__ fwav::Stage<N> sm;
+  const ScanArgs a = fwav::file_args<N>(stack, blockIdx.z);
+  // (B, n_split, M): this file's and this split's row
+  const size_t out0 = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * a.M;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m0 = blockIdx.x * fwav::kRangesPerBlock + warp * 8 * MT;
   const int d0 = blockIdx.y * d_per_split;
@@ -95,20 +100,25 @@ __global__ void __launch_bounds__(fwav::Warp<N, 1>::kThreads,
     }
     const int m = m0 + 8 * mt + (lane >> 2);
     if ((lane & 3) == 0 && m < a.M) {
-      out_score[(size_t)blockIdx.y * a.M + m] = s;
-      out_idx[(size_t)blockIdx.y * a.M + m] = i;
+      out_score[out0 + m] = s;
+      out_idx[out0 + m] = i;
     }
   }
 }
 
-// Partial bests of the domain splits, in split order: a later split wins
-// only on a strict >, so the lowest domain index still wins ties.
+// Partial bests of the domain splits of file blockIdx.y, in split order: a
+// later split wins only on a strict >, so the lowest domain index still wins
+// ties.
 __global__ void merge_splits_kernel(const float* __restrict__ part_score,
                                     const int* __restrict__ part_idx, int M,
                                     int n_split, float* __restrict__ score,
                                     int* __restrict__ idx) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
+  part_score += (size_t)blockIdx.y * n_split * M;
+  part_idx += (size_t)blockIdx.y * n_split * M;
+  score += (size_t)blockIdx.y * M;
+  idx += (size_t)blockIdx.y * M;
   float best = part_score[m];
   int best_i = part_idx[m];
   for (int s = 1; s < n_split; ++s) {
@@ -123,9 +133,9 @@ __global__ void merge_splits_kernel(const float* __restrict__ part_score,
 }
 
 template <int N>
-void launch_scan(const ScanArgs& a, int n_split, int d_per_split, float* out_score,
+void launch_scan(const ScanArgs& a, int B, int n_split, int d_per_split, float* out_score,
                  int* out_idx, cudaStream_t stream) {
-  const dim3 grid((a.M + fwav::kRangesPerBlock - 1) / fwav::kRangesPerBlock, n_split);
+  const dim3 grid((a.M + fwav::kRangesPerBlock - 1) / fwav::kRangesPerBlock, n_split, B);
   const int threads = fwav::Warp<N, 1>::kThreads;
   if (a.thresh != nullptr)
     search_scan_kernel<N, true><<<grid, threads, 0, stream>>>(a, d_per_split, out_score,
@@ -143,26 +153,27 @@ const char* fwav_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// r_c (M, N), bankT (N, D), w (D,), valid (D,), thresh (D,) or null:
-// float32 / int8, contiguous, on the device of `stream`. d_per_split is a
-// multiple of 128 (the staged tile). With n_split > 1 the partial bests go
-// to part_score/part_idx (n_split, M) and a merge pass writes score/idx
-// (M,); with n_split == 1 the scan writes them directly. Returns
-// cudaGetLastError() after the launches.
+// A stack of B files: r_c (B, M, N), bankT (B, N, D), w (B, D), valid
+// (B, D), thresh (B, D) or null: float32 / int8, contiguous, on the device
+// of `stream`. d_per_split is a multiple of 128 (the staged tile). With
+// n_split > 1 the partial bests go to part_score/part_idx (B, n_split, M)
+// and a merge pass writes score/idx (B, M); with n_split == 1 the scan
+// writes them directly. Returns cudaGetLastError() after the launches.
 int fwav_search_scan(const float* r_c, const float* bankT, const float* w,
                      const int8_t* valid, const float* thresh, float s_clip,
-                     int M, int N, int D, int n_split, int d_per_split,
+                     int B, int M, int N, int D, int n_split, int d_per_split,
                      float* part_score, int* part_idx, float* score, int* idx,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d_per_split % fwav::kTileD != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (d_per_split % fwav::kTileD != 0 || B < 1 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const ScanArgs a{r_c, bankT, w, valid, thresh, s_clip, M, D};
   float* s_out = n_split > 1 ? part_score : score;
   int* i_out = n_split > 1 ? part_idx : idx;
   switch (N) {
 #define FWAV_CASE(K)                                              \
   case K:                                                         \
-    launch_scan<K>(a, n_split, d_per_split, s_out, i_out, st);    \
+    launch_scan<K>(a, B, n_split, d_per_split, s_out, i_out, st); \
     break;
     FWAV_CASE(4) FWAV_CASE(5) FWAV_CASE(6) FWAV_CASE(7) FWAV_CASE(8)
     FWAV_CASE(9) FWAV_CASE(10) FWAV_CASE(11) FWAV_CASE(12) FWAV_CASE(13)
@@ -172,8 +183,8 @@ int fwav_search_scan(const float* r_c, const float* bankT, const float* w,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_split > 1) {
-    merge_splits_kernel<<<(M + 255) / 256, 256, 0, st>>>(part_score, part_idx, M,
-                                                         n_split, score, idx);
+    merge_splits_kernel<<<dim3((M + 255) / 256, B), 256, 0, st>>>(part_score, part_idx, M,
+                                                                  n_split, score, idx);
   }
   return static_cast<int>(cudaGetLastError());
 }

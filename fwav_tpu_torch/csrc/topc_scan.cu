@@ -34,7 +34,8 @@
 //     its domains in increasing order;
 //   * at the end the four lanes of a quad, whose lists hold disjoint
 //     domains, merge by (score descending, index ascending);
-//   * the output is (C, M): each lobe column is contiguous for K2.
+//   * the output is (C, M) per file: each lobe column is contiguous for K2;
+//   * blockIdx.z is the file of a stack (scan_tile.cuh).
 // Fragment layout: A rows 0-7 = 8 ranges, rows 8-15 = the same reversed,
 // so c0, c1 = num_o and c2, c3 = num_m of range g for domains 2t, 2t+1.
 
@@ -109,9 +110,11 @@ struct TopcKeep {
 template <int N, int C, bool kClip>
 __global__ void __launch_bounds__(fwav::Warp<N, C>::kThreads,
                                   fwav::Warp<N, C>::kMinBlocks)
-    topc_scan_kernel(ScanArgs a, int c_out, int* __restrict__ out_idx) {
+    topc_scan_kernel(ScanArgs stack, int c_out, int* __restrict__ out_idx) {
   constexpr int MT = fwav::Warp<N, C>::kMT;
   __shared__ fwav::Stage<N> sm;
+  const ScanArgs a = fwav::file_args<N>(stack, blockIdx.z);
+  out_idx += (size_t)blockIdx.z * c_out * a.M;  // (B, c_out, M)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m0 = blockIdx.x * fwav::kRangesPerBlock + warp * 8 * MT;
 
@@ -153,8 +156,8 @@ __global__ void __launch_bounds__(fwav::Warp<N, C>::kThreads,
 }
 
 template <int N, int C>
-void launch_topc(const ScanArgs& a, int c_out, int* out_idx, cudaStream_t stream) {
-  const dim3 grid((a.M + fwav::kRangesPerBlock - 1) / fwav::kRangesPerBlock);
+void launch_topc(const ScanArgs& a, int B, int c_out, int* out_idx, cudaStream_t stream) {
+  const dim3 grid((a.M + fwav::kRangesPerBlock - 1) / fwav::kRangesPerBlock, 1, B);
   const int threads = fwav::Warp<N, C>::kThreads;
   if (a.thresh != nullptr)
     topc_scan_kernel<N, C, true><<<grid, threads, 0, stream>>>(a, c_out, out_idx);
@@ -163,13 +166,13 @@ void launch_topc(const ScanArgs& a, int c_out, int* out_idx, cudaStream_t stream
 }
 
 template <int N>
-int launch_topc_c(const ScanArgs& a, int C, int* out_idx, cudaStream_t stream) {
+int launch_topc_c(const ScanArgs& a, int B, int C, int* out_idx, cudaStream_t stream) {
   if (C <= 2)
-    launch_topc<N, 2>(a, C, out_idx, stream);
+    launch_topc<N, 2>(a, B, C, out_idx, stream);
   else if (C <= 4)
-    launch_topc<N, 4>(a, C, out_idx, stream);
+    launch_topc<N, 4>(a, B, C, out_idx, stream);
   else if (C <= 8)
-    launch_topc<N, 8>(a, C, out_idx, stream);
+    launch_topc<N, 8>(a, B, C, out_idx, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
@@ -179,20 +182,21 @@ int launch_topc_c(const ScanArgs& a, int C, int* out_idx, cudaStream_t stream) {
 
 extern "C" {
 
-// r_c (M, N), bankT (N, D), w (D,), valid (D,), thresh (D,) or null:
-// float32 / int8, contiguous, on the device of `stream`; 1 <= C <= 8.
-// Writes out_idx (C, M) int32. Returns cudaGetLastError() after the launch.
+// A stack of B files: r_c (B, M, N), bankT (B, N, D), w (B, D), valid
+// (B, D), thresh (B, D) or null: float32 / int8, contiguous, on the device
+// of `stream`; 1 <= C <= 8. Writes out_idx (B, C, M) int32. Returns
+// cudaGetLastError() after the launch.
 int fwav_topc_scan(const float* r_c, const float* bankT, const float* w,
                    const int8_t* valid, const float* thresh, float s_clip,
-                   int M, int N, int D, int C, int* out_idx, void* stream) {
+                   int B, int M, int N, int D, int C, int* out_idx, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (C < 1 || B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const ScanArgs a{r_c, bankT, w, valid, thresh, s_clip, M, D};
   int code;
   switch (N) {
 #define FWAV_CASE(K)                               \
   case K:                                          \
-    code = launch_topc_c<K>(a, C, out_idx, st);    \
+    code = launch_topc_c<K>(a, B, C, out_idx, st); \
     break;
     FWAV_CASE(4) FWAV_CASE(5) FWAV_CASE(6) FWAV_CASE(7) FWAV_CASE(8)
     FWAV_CASE(9) FWAV_CASE(10) FWAV_CASE(11) FWAV_CASE(12) FWAV_CASE(13)

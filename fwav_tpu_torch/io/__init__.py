@@ -6,11 +6,12 @@ from .container import (
     save_compressed,
     save_compressed_streaming,
 )
+from .multich import load_compressed_multi, save_compressed_multi
 from .wav import read_wav, read_wav_mono, write_wav
 
 __all__ = [
     "MATCH_DTYPE", "load_compressed", "load_compressed_arrays",
-    "load_compressed_compact", "parse_decode_hint", "read_wav",
-    "read_wav_mono", "save_compressed", "save_compressed_compact",
-    "save_compressed_streaming", "write_wav",
+    "load_compressed_compact", "load_compressed_multi", "parse_decode_hint",
+    "read_wav", "read_wav_mono", "save_compressed", "save_compressed_compact",
+    "save_compressed_multi", "save_compressed_streaming", "write_wav",
 ]

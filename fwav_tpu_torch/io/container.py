@@ -202,9 +202,9 @@ def load_compressed_arrays(filepath, verify_checksum: bool = True):
 
         return load_compressed_compact(filepath, verify_checksum=verify_checksum)
     if head[4] == 3:
-        raise NotImplementedError(
-            "FWAV v3 (multichannel) is not ported yet (ROADMAP.md: packed "
-            "batch and multichannel)"
+        raise ValueError(
+            "Multichannel FWAV container (v3): load it with "
+            "io.multich.load_compressed_multi"
         )
 
     from . import native

@@ -1,8 +1,14 @@
-from .decode import decompress_audio
-from .encode import compress_audio, compress_audio_arrays, prune_bank
+from .decode import decompress_audio, decompress_segment
+from .encode import (
+    PACK_B_MAX,
+    compress_audio,
+    compress_audio_arrays,
+    compress_audio_packed,
+    prune_bank,
+)
 from .stream import compress_audio_streaming
 
 __all__ = [
-    "compress_audio", "compress_audio_arrays", "compress_audio_streaming",
-    "decompress_audio", "prune_bank",
+    "PACK_B_MAX", "compress_audio", "compress_audio_arrays", "compress_audio_packed",
+    "compress_audio_streaming", "decompress_audio", "decompress_segment", "prune_bank",
 ]

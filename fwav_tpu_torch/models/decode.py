@@ -6,7 +6,8 @@ at the first iteration, so decode is a host closed form with no device
 work: `_decode_fixed_point_np` and `_fixed_point_chunk` are copied from
 the JAX package (numpy). Every other setting runs the iterative loop,
 `decode_loop`, the torch form of the JAX package's `build_decode_core`,
-on the device that was asked for, chunk by chunk.
+on the device that was asked for, chunk by chunk. `decompress_segment`
+decodes a window of samples from the ranges that cover it.
 """
 
 from __future__ import annotations
@@ -124,6 +125,7 @@ def decompress_audio(
     s_clip: float = 16.0,
     s_damping: float = 0.0,
     config=None,
+    mesh=None,
     stats=None,
     device="cuda",
 ):
@@ -136,8 +138,14 @@ def decompress_audio(
     1 lands on the fixed point with delta ||recon||, iteration 2 reproduces
     it with delta 0. Every other setting runs `decode_loop` on `device`:
     "cuda" (the default, the card) or, when asked for, "cpu". `use_gpu` is
-    accepted for the reference's signature."""
+    accepted for the reference's signature. `mesh`: only None; a decode
+    sharded over several devices is not ported yet."""
     del use_gpu
+    if mesh is not None:
+        raise NotImplementedError(
+            "decompress_audio(mesh=...) is not ported yet "
+            "(ROADMAP.md Queue 1 item 15: multi-GPU)"
+        )
     dev = resolve_device(device)
     if config is not None:
         iterations = config.iterations
@@ -169,6 +177,41 @@ def decompress_audio(
     if original_len is not None:
         recon = recon[: int(original_len)]
     return recon
+
+
+def decompress_segment(
+    matches,
+    domains_array,
+    n_ranges,
+    range_size,
+    start,
+    end,
+    original_len=None,
+    **decode_kwargs,
+):
+    """Decode samples [start, end) without reconstructing the file. The
+    ranges do not overlap and each is reconstructed on its own, so decoding
+    only the ranges that cover the window is exact: at s_damping=0 (the
+    closed form) the result is bit-identical to slicing the full decode;
+    the loop reaches the same fixed point, and only the iteration count of
+    its early stop (a delta over the chunk it is given) can differ.
+
+    start and end are sample offsets (end exclusive, clamped to the file);
+    a negative start clamps to 0. `decode_kwargs` go to decompress_audio
+    (`device` among them). Returns the float32 segment."""
+    n_ranges = int(n_ranges)
+    range_size = int(range_size)
+    total = int(original_len) if original_len is not None else n_ranges * range_size
+    start = max(0, int(start))
+    end = min(int(end), total)
+    if end <= start or n_ranges == 0:
+        return np.zeros(0, np.float32)
+    r0 = start // range_size
+    r1 = min(-(-end // range_size), n_ranges)
+    rec = matches_to_struct(matches)[r0:r1]
+    seg = decompress_audio(rec, domains_array, r1 - r0, range_size, original_len=None,
+                           **decode_kwargs)
+    return seg[start - r0 * range_size : end - r0 * range_size]
 
 
 def _decode_loop_chunks(rec, domains, n_ranges, range_size, iterations, eps,

@@ -14,8 +14,20 @@ there): "exact" is K1 over the whole bank; "coarse" with one lobe is K1
 over the stride-subsampled bank, then K2 around each range's lobe;
 "coarse" with several lobes (the damped profile always takes 4) is K3's
 top-C lobes over the subsampled bank, then K2 once over all of them.
-Geometry that the JAX kernel path does not cover raises
-NotImplementedError, naming the ROADMAP.md item that will port it.
+Where the JAX kernel path leaves its window-refine kernel (a coarse stride
+that is no multiple of 128: tile sizes under 1024; domain_step over 1:
+tile 2048; a bank over the 9 MB means cap: files over ~53 s), so does the
+port, by the same gates (`_plan_search`): K1 or K3 scans the subsampled
+rows of the full device bank and the staged window refine of
+ops/search.py (torch ops; it has no kernel in the JAX package either)
+refines around the lobes.
+
+Every device program here is written over a stack of files, (B, ...)
+tensors with one count per file; `encode_core` is the B = 1 case of
+`encode_core_packed`, which `compress_audio_packed` runs once per stack
+of same-bucket files: each kernel launches once per stack, with the file
+as the slowest axis of its grid, and one file's codes do not depend on
+its neighbours.
 
 The streaming encode (models/stream.py) runs two more device programs,
 the counterparts of the JAX core's mode="masked" and mode="global":
@@ -55,10 +67,15 @@ IDX3_SENTINEL = 0xFFFFFF
 PACK3_MAX_ROWS = (1 << 24) - 1
 
 
+#: Files per packed stack: bounds device memory (B banks) while one launch
+#: of each kernel serves the whole stack.
+PACK_B_MAX = 16
+
+
 def pack3(code: torch.Tensor) -> torch.Tensor:
-    """(m,) int32 codes -> (m, 3) uint8, little-endian."""
+    """(..., m) int32 codes -> (..., m, 3) uint8, little-endian."""
     return torch.stack(
-        [(code >> s) & 0xFF for s in (0, 8, 16)], dim=1
+        [(code >> s) & 0xFF for s in (0, 8, 16)], dim=-1
     ).to(torch.uint8)
 
 
@@ -95,22 +112,25 @@ def _means_setup(raw_norm, n: int, block_len: int, stride: int, dc: int):
     """The box-mean sequence in the layout K2 reads (`means_ext`: a
     stride-wide zero lead, then a zero tail) and the stride-subsampled bank
     rows K1 scans (strided views of the sequence; the full bank is never
-    built on this path)."""
+    built on this path). Along the last axis: a stack raw_norm (B, nb)
+    gives (B, Lext) and (B, dc, n)."""
     means = box_sums(raw_norm, block_len) * (1.0 / block_len)
+    lead = means.shape[:-1]
     W = stride + stride // 4
     lane0 = stride - W // 2
     ls = lane0 + (W - 1) + (n - 1) * block_len + 1
     Lslice = -(-ls // 128) * 128
     Lext = -(-(stride + (dc - 1) * stride + Lslice) // 128) * 128
-    k = min(means.shape[0], Lext - stride)
+    k = min(means.shape[-1], Lext - stride)
     means_ext = torch.cat([
-        means.new_zeros(stride), means[:k], means.new_zeros(Lext - stride - k)
-    ])
+        means.new_zeros((*lead, stride)), means[..., :k],
+        means.new_zeros((*lead, Lext - stride - k)),
+    ], dim=-1)
     span = (dc - 1) * stride + 1
-    mp = means if means.shape[0] >= span + (n - 1) * block_len else means_ext[stride:]
+    mp = means if means.shape[-1] >= span + (n - 1) * block_len else means_ext[..., stride:]
     bank_sub = torch.stack(
-        [mp[j * block_len : j * block_len + span : stride] for j in range(n)],
-        dim=1,
+        [mp[..., j * block_len : j * block_len + span : stride] for j in range(n)],
+        dim=-1,
     )
     return means_ext, bank_sub
 
@@ -140,91 +160,110 @@ def _coarse_topc(cfg: EncoderConfig) -> int:
 
 
 def _plan_search(cfg: EncoderConfig, mb: int, db: int):
-    """The search mode and stride, or NotImplementedError where the JAX
-    kernel path would leave the kernels (its gates, mirrored)."""
+    """(search mode, coarse stride, refine) for mb bucketed ranges and a
+    db-row bucketed bank. `refine` is None for "exact"; for "coarse" it is
+    "window" where the JAX kernel path runs its window-refine kernel (K2
+    here) and "staged" where it runs the staged refine over the full bank
+    instead: its gates, mirrored, so that both packages take the same
+    branch. One lobe takes K2 where pallas_blocks_ok and refine_blocks_ok
+    hold; several lobes where refine_blocks_ok holds. K1 and K3 serve every
+    geometry (the JAX package runs exact_search_block or gain_topk_scan, the
+    same selection rules, where its scan kernels' block gate fails)."""
     n = cfg.range_size
     if cfg.objective not in ("balanced", "affine", "damped"):
         raise ValueError(f"unknown objective {cfg.objective!r}")
     search_mode, stride = _resolve_search(cfg, n, db)
     if search_mode == "exact":
-        # the JAX package runs K1 or, where its Mosaic block gate fails, the
-        # lax.scan oracle: the same selection rule, so K1 serves both
-        return search_mode, stride
+        return search_mode, stride, None
     if search_mode == "topk":
         raise NotImplementedError(
             'search="topk" is not ported yet (ROADMAP.md: topk compatibility mode)'
         )
     if search_mode != "coarse":
         raise ValueError(f"unknown search mode {cfg.search!r}")
-    topc = _coarse_topc(cfg)
+    if db % stride:
+        raise ValueError(f"a {db}-row bank does not divide into stride {stride}")
     rblk = _pow2_divisor(mb, cfg.range_block)
     rb_rk = _pow2_divisor(rblk, 512)
-    if topc > 1:
-        # the JAX multi-lobe kernel path runs where the window refine's gate
-        # holds: K3 (or, where its Mosaic block gate fails, the
-        # gain_topk_scan oracle of the same selection rule), then K2 per lobe
-        if db % stride or not refine_blocks_ok(rblk, rb_rk, stride, cfg.domain_step,
-                                               cfg.objective, db):
-            raise NotImplementedError(
-                f"coarse search with {topc} lobes (stride {stride}, bank {db} "
-                f"rows, {mb} ranges) takes the staged refine in the JAX "
-                "package (coarse_refine_search), which is not ported yet "
-                "(ROADMAP.md: staged refine_from_lobes and gain_topk_scan)"
-            )
-        return search_mode, stride
-    prb = 512 if rblk % 512 == 0 else _pow2_divisor(rblk, 512)
-    dc = db // stride
-    cdblk = _pow2_divisor(dc, cfg.domain_block)
-    # db=0 checks the geometry alone; the size cap is checked below
-    geometry_ok = refine_blocks_ok(rblk, rb_rk, stride, cfg.domain_step,
-                                   cfg.objective, 0)
-    if db % stride or not pallas_blocks_ok(rblk, dc, prb, cdblk) or not geometry_ok:
-        raise NotImplementedError(
-            f"coarse geometry (stride {stride}, bank {db} rows, {mb} ranges) "
-            "takes the staged refine in the JAX package, which is not ported "
-            "yet (ROADMAP.md: staged refine_from_lobes and gain_topk_scan)"
-        )
-    if not refine_blocks_ok(rblk, rb_rk, stride, cfg.domain_step, cfg.objective, db):
-        raise NotImplementedError(
-            f"a {db}-row bank is over the window refine's 9 MB means cap "
-            "(single-shot files over ~53 s at 44.1 kHz; ROADMAP.md: lifting "
-            "the 9 MB cap)"
-        )
-    return search_mode, stride
+    window = refine_blocks_ok(rblk, rb_rk, stride, cfg.domain_step, cfg.objective, db)
+    if _coarse_topc(cfg) == 1:
+        prb = 512 if rblk % 512 == 0 else _pow2_divisor(rblk, 512)
+        dc = db // stride
+        window = window and pallas_blocks_ok(
+            rblk, dc, prb, _pow2_divisor(dc, cfg.domain_block))
+    return search_mode, stride, "window" if window else "staged"
+
+
+def _stack_counts(dev, *per_file) -> torch.Tensor:
+    """Lists of one count per file -> a (len(per_file), B) int64 tensor on
+    `dev`, in one copy. A device program makes it first, beside the copy of
+    its raw samples and before it enqueues anything: a copy from the host
+    waits for the stream (ops/affine.py row_mean), so none is made later."""
+    return torch.tensor([[int(v) for v in row] for row in per_file],
+                        dtype=torch.int64).to(dev)
 
 
 def _norm(raw):
-    """float32 signal and the 1/max|x| normalization (1 for silence)."""
+    """float32 signal and the 1/max|x| normalization (1 for silence), along
+    the last axis: inv is 0-d for one signal, (B,) for a stack."""
     rawf = raw.to(torch.float32)
-    scale = rawf.abs().max()
+    scale = rawf.abs().amax(dim=-1)
     return rawf, torch.where(scale > 0, torch.reciprocal(scale), 1.0)
 
 
-def _run_search(ranges, raw_norm, n_domains: int, db: int, cfg: EncoderConfig,
-                search_mode: str, stride: int):
-    """(idx, score) per range: K1 over the whole bank ("exact"), or K1
-    (one lobe) or K3 (several) over the subsampled bank, then K2 once
-    around every lobe ("coarse")."""
+def _staged_refine(ranges, bank, n_domains: int, lobes, stride: int, cfg: EncoderConfig):
+    """The staged window refine of one file over its full bank, in range
+    blocks of the JAX lax.map's size (they bound the gathered rows: C * W a
+    range). Every lobe column goes into one call, as the JAX package's
+    coarse_refine_search passes them: with one column and stride >= 32 the
+    staged (16, 4) descent runs, with C columns all C * W rows are scored.
+    Returns (idx (M,) int32, score (M,) float32)."""
+    mb = ranges.shape[0]
+    rblk = _pow2_divisor(mb, cfg.range_block)
+    out = [
+        refine_from_lobes(ranges[r0 : r0 + rblk], bank, n_domains,
+                          lobes[r0 : r0 + rblk], stride, cfg.s_clip, cfg.objective)
+        for r0 in range(0, mb, rblk)
+    ]
+    return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+
+def _run_search(ranges, raw_norm, n_domains, nd, db: int, cfg: EncoderConfig,
+                search_mode: str, stride: int, refine):
+    """(idx, score), each (B, M), of a stack: ranges (B, M, n), raw_norm
+    (B, nb), n_domains a list of B ints and nd the same on the device (B,).
+    K1 over the whole bank ("exact"),
+    or K1 (one lobe) or K3 (several) over the subsampled bank, then around
+    every lobe K2 once (refine "window") or the staged refine over the full
+    bank, file by file ("staged"). Each kernel is one launch per stack."""
     n = cfg.range_size
     dev = ranges.device
-    r_c = ranges - row_mean(ranges)[:, None]
+    nd = nd[:, None]
+    r_c = ranges - row_mean(ranges)[..., None]
     if search_mode == "exact":
-        bank = build_bank(raw_norm, cfg.tile_size, n, cfg.domain_step, db, n_domains)
+        bank = build_bank(raw_norm, cfg.tile_size, n, cfg.domain_step, db, nd[:, 0])
         d_mean, d_denom = affine_stats(bank)
-        valid = torch.arange(db, device=dev) < n_domains
+        valid = torch.arange(db, device=dev)[None, :] < nd
         score, idx = search_scan(
-            r_c, bank.T.contiguous(),
+            r_c, bank.transpose(1, 2).contiguous(),
             domain_weights(d_mean, d_denom, n, cfg.objective), valid,
             domain_thresh(d_denom, cfg.objective, cfg.s_clip), cfg.s_clip,
         )
         return idx, score
     dc = db // stride
     block_len = cfg.tile_size // n
-    means_ext, bank_sub = _means_setup(raw_norm, n, block_len, stride, dc)
+    if refine == "window":
+        means_ext, bank_sub = _means_setup(raw_norm, n, block_len, stride, dc)
+    else:
+        # the full bank, for the staged refine; the scan reads its
+        # subsampled rows (not _means_setup's strided views of the box
+        # means: near-ties depend on whose bits the scan reads)
+        bank = build_bank(raw_norm, cfg.tile_size, n, cfg.domain_step, db, nd[:, 0])
+        bank_sub = bank.reshape(-1, dc, stride, n)[:, :, 0, :]
     sub_mean, sub_denom = affine_stats(bank_sub)
-    v_sub = torch.arange(dc, device=dev) * stride < n_domains
+    v_sub = torch.arange(dc, device=dev)[None, :] * stride < nd
     scan_args = (
-        r_c, bank_sub.T.contiguous(),
+        r_c, bank_sub.transpose(1, 2).contiguous(),
         domain_weights(sub_mean, sub_denom, n, cfg.objective), v_sub,
     )
     thresh = domain_thresh(sub_denom, cfg.objective, cfg.s_clip)
@@ -232,58 +271,85 @@ def _run_search(ranges, raw_norm, n_domains: int, db: int, cfg: EncoderConfig,
     if topc == 1:
         score, cidx = search_scan(*scan_args, thresh, cfg.s_clip)
         lobes = torch.where(torch.isfinite(score), cidx, -1)
+        if refine == "staged":
+            lobes = lobes[..., None]
     else:
-        # (M, topc), the transposed view of K3's output, as K2 takes it
+        # (B, M, topc), the transposed view of K3's output, as K2 takes it
         lobes = topc_scan(*scan_args, topc, thresh, cfg.s_clip)
-    # one launch walks every lobe of a range; the earlier lobe wins ties
-    r_score, r_idx = refine_window(
-        means_ext, lobes, ranges, n_domains, stride, block_len, cfg.objective,
-        cfg.s_clip,
-    )
-    return r_idx, r_score
+    if refine == "window":
+        # one launch walks every lobe of a range; the earlier lobe wins ties
+        r_score, r_idx = refine_window(
+            means_ext, lobes, ranges, n_domains, stride, block_len, cfg.objective,
+            cfg.s_clip,
+        )
+        return r_idx, r_score
+    per_file = [
+        _staged_refine(ranges[b], bank[b], int(n_domains[b]), lobes[b], stride, cfg)
+        for b in range(ranges.shape[0])
+    ]
+    return torch.stack([f[0] for f in per_file]), torch.stack([f[1] for f in per_file])
 
 
-def _finish(ranges, raw_norm, n_ranges: int, n_domains: int, inv, db: int,
-            cfg: EncoderConfig, search_mode: str, stride: int):
-    """The search, then the sentinel mask and the 3-byte codes: the part
-    the raw and masked programs share (the JAX core's `finish` and
-    `pack_out` at dp = tp = 1)."""
-    idx, score = _run_search(ranges, raw_norm, n_domains, db, cfg, search_mode, stride)
+def _finish(ranges, raw_norm, nr, n_domains, nd, inv, db: int,
+            cfg: EncoderConfig, search_mode: str, stride: int, refine):
+    """The search, then the sentinel mask and the 3-byte codes, of a stack:
+    ranges (B, mb, n), raw_norm (B, nb), n_domains a list of B ints, nr and
+    nd the files' range and domain counts on the device (B,), inv (B,). The part the raw and masked programs share (the JAX
+    core's `finish` and `pack_out` at dp = tp = 1). Returns (B, mb, 3)
+    uint8."""
+    idx, score = _run_search(ranges, raw_norm, n_domains, nd, db, cfg, search_mode,
+                             stride, refine)
     # sentinels: energy-pruned (mean power under 0.75 * thresh, on the
     # normalized scale), bucket-pad rows, and rows with no finite score
-    mb = ranges.shape[0]
+    mb = ranges.shape[1]
     r_pow = row_mean(ranges * ranges)
-    thr_n = float(cfg.energy_thresh) * inv * inv
-    r_valid = torch.arange(mb, device=ranges.device) < n_ranges
+    thr_n = (float(cfg.energy_thresh) * inv * inv)[:, None]
+    r_valid = torch.arange(mb, device=ranges.device)[None, :] < nr[:, None]
     silent = (r_pow < thr_n * 0.75) if cfg.fast_mode else torch.zeros_like(r_valid)
     dead = silent | ~r_valid | ~torch.isfinite(score)
     return pack3(torch.where(dead, IDX3_SENTINEL, idx).to(torch.int32))
 
 
-def encode_core(raw, n_samples: int, n_ranges: int, n_domains: int, lb: int,
-                db: int, cfg: EncoderConfig, search_mode: str, stride: int):
-    """The device program: bucket-padded raw signal (int16 or float32, on
-    the device) -> (lb // range_size, 3) uint8 idx codes, IDX3_SENTINEL
-    for energy-pruned, padded and no-candidate ranges."""
+def encode_core_packed(raw, n_samples, n_ranges, n_domains, lb: int, db: int,
+                       cfg: EncoderConfig, search_mode: str, stride: int, refine):
+    """The device program over a stack of same-bucket files: raw (B, nb),
+    the bucket-padded raw signals (int16 or float32, on the device), and
+    n_samples, n_ranges, n_domains, lists of B ints -> (B, lb // range_size,
+    3) uint8 idx codes, IDX3_SENTINEL for energy-pruned, padded and
+    no-candidate ranges. Each file is normalized, masked, cut into ranges
+    and searched as it is alone; each kernel launches once for the stack."""
     n = cfg.range_size
-    nb = raw.shape[0]
+    B, nb = raw.shape
     mb = lb // n
+    dev = raw.device
+    ns, nr, nd = _stack_counts(dev, n_samples, n_ranges, n_domains)
     rawf, inv = _norm(raw)
-    mask = voiced_mask(rawf, n_samples, 2 * n, float(cfg.energy_thresh))
-    weighted = rawf * (mask.to(torch.float32) * inv)
+    mask = voiced_mask(rawf, ns, 2 * n, float(cfg.energy_thresh))
+    weighted = rawf * (mask.to(torch.float32) * inv[:, None])
     if lb <= nb:
-        base = weighted[:lb]
+        base = weighted[:, :lb]
     else:
-        base = torch.cat([weighted, weighted.new_zeros(lb - nb)])
-    ranges = base.reshape(mb, n).clone()
-    if n_samples % n:
-        # reflect-pad the tail range: position p >= ns reads 2*ns - 2 - p
-        last = (n_samples - 1) // n
-        tpos = last * n + torch.arange(n, device=raw.device)
-        refl = torch.where(tpos < n_samples, tpos, 2 * n_samples - 2 - tpos)
-        ranges[last] = weighted[refl.clamp(0, nb - 1)]
-    return _finish(ranges, rawf * inv, n_ranges, n_domains, inv, db, cfg,
-                   search_mode, stride)
+        base = torch.cat([weighted, weighted.new_zeros((B, lb - nb))], dim=1)
+    ranges = base.reshape(B, mb, n)
+    # reflect-pad each file's tail range: position p >= ns reads 2*ns - 2 - p
+    ns = ns[:, None]
+    last = (ns - 1) // n                                          # (B, 1)
+    tpos = last * n + torch.arange(n, device=dev)[None, :]
+    refl = torch.where(tpos < ns, tpos, 2 * ns - 2 - tpos)
+    tail = weighted.gather(1, refl.clamp(0, nb - 1))              # (B, n)
+    is_tail = (torch.arange(mb, device=dev)[None, :] == last) & (ns % n != 0)
+    ranges = torch.where(is_tail[..., None], tail[:, None, :], ranges)
+    return _finish(ranges, rawf * inv[:, None], nr, n_domains, nd, inv, db, cfg,
+                   search_mode, stride, refine)
+
+
+def encode_core(raw, n_samples: int, n_ranges: int, n_domains: int, lb: int,
+                db: int, cfg: EncoderConfig, search_mode: str, stride: int, refine):
+    """The device program of one file: bucket-padded raw signal (int16 or
+    float32, on the device) -> (lb // range_size, 3) uint8 idx codes. The
+    stack of one of encode_core_packed."""
+    return encode_core_packed(raw[None], [n_samples], [n_ranges], [n_domains], lb, db,
+                              cfg, search_mode, stride, refine)[0]
 
 
 def _mask_weighted(raw, mask_bytes):
@@ -298,7 +364,7 @@ def _mask_weighted(raw, mask_bytes):
 
 
 def encode_core_masked(raw, mask_bytes, meta, lb: int, db: int,
-                       cfg: EncoderConfig, search_mode: str, stride: int):
+                       cfg: EncoderConfig, search_mode: str, stride: int, refine):
     """One streaming shard (the JAX core's mode="masked"): the window's
     raw samples (int16 or float32, bucket-padded to nb, on the device), the
     host VAD of the same samples as nb/8 packed bytes, and meta =
@@ -309,11 +375,12 @@ def encode_core_masked(raw, mask_bytes, meta, lb: int, db: int,
     Returns (lb // range_size, 3) uint8 codes of window-local rows."""
     n = cfg.range_size
     _, offset, n_ranges, n_domains = (int(v) for v in meta)
+    nr, nd = _stack_counts(raw.device, [n_ranges], [n_domains])
     rawf, inv, weighted = _mask_weighted(raw, mask_bytes)
     off = min(max(offset, 0), raw.shape[0] - lb)  # lax.dynamic_slice's clamp
-    ranges = weighted[off : off + lb].reshape(lb // n, n)
-    return _finish(ranges, rawf * inv, n_ranges, n_domains, inv, db, cfg,
-                   search_mode, stride)
+    ranges = weighted[off : off + lb].reshape(1, lb // n, n)
+    return _finish(ranges, (rawf * inv)[None], nr, [n_domains], nd, inv[None], db,
+                   cfg, search_mode, stride, refine)[0]
 
 
 def encode_core_global(raw, mask_bytes, meta, local_rows, lb: int, db: int,
@@ -429,24 +496,36 @@ def _prep_signal(signal: np.ndarray, cfg: EncoderConfig):
     return raw_p, n_ranges, n_domains, lb, db
 
 
+def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, device: torch.device):
+    """One stack of same-bucket files, each (signal, raw_p, n_ranges,
+    n_domains) of _prep_signal: the device core, the idx-only transfer, the
+    host refit. The host banks are built while the device runs (kernel
+    launches return at once); the one copy of the stack's codes waits for
+    the device. Returns one result per file."""
+    plan = _plan_search(cfg, lb // cfg.range_size, db)
+    raw = torch.from_numpy(np.stack([f[1] for f in files])).to(device)
+    codes = encode_core_packed(
+        raw, [len(f[0]) for f in files], [f[2] for f in files], [f[3] for f in files],
+        lb, db, cfg, *plan,
+    )
+    banks = [build_domains_host(f[0], cfg.tile_size, cfg.range_size, cfg.domain_step)
+             for f in files]
+    c = codes.cpu().numpy()
+    out = []
+    for j, (signal, _, n_ranges, n_domains) in enumerate(files):
+        assert len(banks[j]) == n_domains
+        out.append(_finalize_encode(c[j][:n_ranges], signal, cfg, n_ranges, len(signal),
+                                    banks[j]))
+    return out
+
+
 def _compress_fast(signal: np.ndarray, cfg: EncoderConfig, device: torch.device):
-    """Single-shot encode: device core, idx-only transfer, host refit. The
-    host bank is built while the device runs (kernel launches return at
-    once); the copy of the codes waits for the device."""
-    original_len = len(signal)
+    """Single-shot encode: the stack of one file."""
     prep = _prep_signal(signal, cfg)
     if prep is None:
-        return _empty_result(cfg, original_len)
+        return _empty_result(cfg, len(signal))
     raw_p, n_ranges, n_domains, lb, db = prep
-    search_mode, stride = _plan_search(cfg, lb // cfg.range_size, db)
-    raw = torch.from_numpy(raw_p).to(device)
-    codes = encode_core(
-        raw, original_len, n_ranges, n_domains, lb, db, cfg, search_mode, stride
-    )
-    bank = build_domains_host(signal, cfg.tile_size, cfg.range_size, cfg.domain_step)
-    c = codes.cpu().numpy()[:n_ranges]
-    assert len(bank) == n_domains
-    return _finalize_encode(c, signal, cfg, n_ranges, original_len, bank)
+    return _encode_stack([(signal, raw_p, n_ranges, n_domains)], lb, db, cfg, device)[0]
 
 
 def _finalize_encode(c, signal, cfg, n_ranges, original_len, bank):
@@ -583,6 +662,73 @@ def compress_audio_arrays(
     )
     signal = np.ascontiguousarray(np.asarray(signal, dtype=np.float32))
     return _compress_fast(signal, cfg, dev)
+
+
+def compress_audio_packed(
+    signals,
+    framerate,
+    sampwidth,
+    tile_size: int = 1024,
+    energy_thresh: float = 1e-4,
+    fast_mode: bool = True,
+    search: str = "auto",
+    objective: str = "balanced",
+    global_candidates: bool | None = None,
+    config: EncoderConfig | None = None,
+    mesh=None,
+    device="cuda",
+):
+    """Encode many signals, one device program per stack of up to
+    PACK_B_MAX files that share a shape bucket (nb, lb, db) and a transfer
+    dtype (16-bit-exact files ship as int16 and never share a stack with
+    float32 ones). Each of K1 / K3, K2 and its table launches once per
+    stack, with the file as the slowest axis of its grid
+    (encode_core_packed); where the geometry takes the staged refine
+    (_plan_search) that part runs file by file. The host builds each file's
+    bank while the device runs, one copy brings the stack's codes back, and
+    each file is finalized as the single-shot encoder does it, so every
+    file's records equal compress_audio_arrays' exactly.
+
+    Returns a list of compress_audio_arrays-shaped 8-tuples in input
+    order; an empty or too-short input gives the empty result in its place.
+    A ValueError of one input is re-raised as `signal {i}: ...`. `mesh`:
+    only None; a multi-device encode is not ported yet. `device`: "cuda"
+    (the default) or, when asked for, "cpu"."""
+    del framerate, sampwidth  # not used by the encode; kept for API symmetry
+    del global_candidates  # a streaming knob: a single-shot encode searches the whole bank
+    if mesh is not None:
+        raise NotImplementedError(
+            "compress_audio_packed(mesh=...) is not ported yet "
+            "(ROADMAP.md Queue 1 item 15: multi-GPU)"
+        )
+    dev = resolve_device(device)
+    cfg = config or EncoderConfig(
+        tile_size=tile_size, energy_thresh=energy_thresh, fast_mode=fast_mode,
+        search=search, objective=objective,
+    )
+    results = [None] * len(signals)
+    groups: dict = {}
+    prepped: dict = {}
+    for i, sig in enumerate(signals):
+        signal = np.ascontiguousarray(np.asarray(sig, dtype=np.float32))
+        try:
+            prep = _prep_signal(signal, cfg)
+        except ValueError as e:
+            raise ValueError(f"signal {i}: {e}") from None
+        if prep is None:
+            results[i] = _empty_result(cfg, len(signal))
+            continue
+        raw_p, n_ranges, n_domains, lb, db = prep
+        groups.setdefault((len(raw_p), lb, db, raw_p.dtype), []).append(i)
+        prepped[i] = (signal, raw_p, n_ranges, n_domains)
+
+    for (_, lb, db, _), idxs in groups.items():
+        for c0 in range(0, len(idxs), PACK_B_MAX):
+            chunk = idxs[c0 : c0 + PACK_B_MAX]
+            done = _encode_stack([prepped[i] for i in chunk], lb, db, cfg, dev)
+            for i, res in zip(chunk, done):
+                results[i] = res
+    return results
 
 
 def compress_audio(signal, framerate, sampwidth, **kwargs):

@@ -312,7 +312,7 @@ def compress_audio_streaming(
         db = bucket(max(g[2] for g in live_geo), 256)
         nbw = bucket(max(max(g[3] for g in live_geo), max(g[4] for g in live_geo) + lb),
                      4096)
-        search_mode, stride = _plan_search(cfg, lb // n, db)
+        plan = _plan_search(cfg, lb // n, db)
 
     for k, (a, b) in enumerate(bounds):
         if resume_dir and os.path.exists(_ckpt(k)):
@@ -346,7 +346,7 @@ def compress_audio_streaming(
         timer.record(0)
         with torch.profiler.record_function("stream.shard"):
             codes = encode_core_masked(raw, mask, (lenw, off, m, n_dom_w), lb, db, cfg,
-                                       search_mode, stride)
+                                       *plan)
         timer.record(1)
         timer.lap("enqueue_ms")
         b3 = codes.cpu().numpy()[:m]

@@ -100,15 +100,16 @@ def _bind(lib):
     lib.fwav_error_string.argtypes = [i]
     lib.fwav_search_scan.restype = i
     lib.fwav_search_scan.argtypes = [
-        p, p, p, p, p, f, i, i, i, i, i, p, p, p, p, p,
+        p, p, p, p, p, f, i, i, i, i, i, i, p, p, p, p, p,
     ]
     lib.fwav_topc_scan.restype = i
-    lib.fwav_topc_scan.argtypes = [p, p, p, p, p, f, i, i, i, i, p, p]
+    lib.fwav_topc_scan.argtypes = [p, p, p, p, p, f, i, i, i, i, i, p, p]
     lib.fwav_window_stats.restype = i
-    lib.fwav_window_stats.argtypes = [p, i, i, i, i, f, p, p]
+    lib.fwav_window_stats.argtypes = [p, i, i, i, i, i, f, p, p]
     lib.fwav_refine_window.restype = i
     lib.fwav_refine_window.argtypes = [
-        p, p, i, p, i, i, i, p, i, i, i, i, i, i, f, p, p, p,
+        p, p, i, i, p, i, ctypes.c_longlong, i, i, p, i, i,
+        ctypes.POINTER(ctypes.c_int), i, i, i, f, p, p, p,
     ]
     return lib
 

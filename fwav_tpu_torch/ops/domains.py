@@ -27,22 +27,23 @@ def n_domains_for(n_samples: int, tile_size: int, domain_step: int) -> int:
 
 
 def box_sums(x: torch.Tensor, width: int) -> torch.Tensor:
-    """s[p] = sum(x[p : p + width]) for every position (tail positions wrap
-    around; callers read only p <= len(x) - width). The same two-stage
-    shifted-add order as the JAX package (width = b1*b2 + rem), so the
-    sums agree bit for bit."""
+    """s[p] = sum(x[p : p + width]) for every position along the last axis
+    (tail positions wrap around within their own row, never into a
+    neighbouring file of a stack; callers read only p <= len - width). The
+    same two-stage shifted-add order as the JAX package (width = b1*b2 +
+    rem), so the sums agree bit for bit."""
     if width == 1:
         return x
     b1 = max(1, math.isqrt(width))
     b2 = width // b1
     s1 = x
     for t in range(1, b1):
-        s1 = s1 + torch.roll(x, -t)
+        s1 = s1 + torch.roll(x, -t, dims=-1)
     out = s1
     for k in range(1, b2):
-        out = out + torch.roll(s1, -k * b1)
+        out = out + torch.roll(s1, -k * b1, dims=-1)
     for t in range(b1 * b2, width):
-        out = out + torch.roll(x, -t)
+        out = out + torch.roll(x, -t, dims=-1)
     return out
 
 
@@ -52,27 +53,32 @@ def build_bank(
     range_size: int,
     domain_step: int,
     d_bucket: int,
-    n_domains: int,
+    n_domains,
 ) -> torch.Tensor:
     """(d_bucket, range_size) bank from a bucket-padded normalized signal;
     rows >= n_domains are zero. Column j is the strided slice
-    means[j*block_len :: domain_step] of the box-mean sequence."""
+    means[j*block_len :: domain_step] of the box-mean sequence. A stack
+    signal_padded (B, nb) with n_domains a (B,) integer tensor on its
+    device gives (B, d_bucket, range_size)."""
     block_len = tile_size // range_size
-    nb = signal_padded.shape[0]
+    nb = signal_padded.shape[-1]
     means = box_sums(signal_padded, block_len) * (1.0 / block_len)
     need = (range_size - 1) * block_len + (d_bucket - 1) * domain_step + 1
     if need > nb:
-        means = torch.cat([means, means.new_zeros(need - nb)])
+        means = torch.cat(
+            [means, means.new_zeros((*means.shape[:-1], need - nb))], dim=-1)
     span = (d_bucket - 1) * domain_step + 1
     bank = torch.stack(
         [
-            means[j * block_len : j * block_len + span : domain_step]
+            means[..., j * block_len : j * block_len + span : domain_step]
             for j in range(range_size)
         ],
-        dim=1,
+        dim=-1,
     )
     rows = torch.arange(d_bucket, device=bank.device)
-    return torch.where((rows < n_domains)[:, None], bank, 0.0)
+    if torch.is_tensor(n_domains):
+        n_domains = n_domains[..., None]
+    return torch.where((rows < n_domains)[..., None], bank, 0.0)
 
 
 def build_domains_host(

@@ -26,6 +26,14 @@ within a proven margin and confirm the pairs that can win in its float32
 arithmetic (csrc/scan_tile.cuh). `LAUNCHES` counts kernel launches per
 wrapper.
 
+Every wrapper and every plain version also takes a stack of files: the
+same arguments with a leading file axis B on every tensor (and one n_valid
+per file for K2). On the card a stack is ONE launch, with the file as the
+slowest axis of the kernel's grid; a single file is the B = 1 case of the
+same kernel. Each file is scanned against its own bank and no reduction
+crosses files, so a file's result does not depend on the stack it is in.
+The plain versions loop over the files of a stack.
+
 `pallas_blocks_ok` and `refine_blocks_ok` are the JAX package's gates for
 its kernel path, copied so that the port takes the same branches.
 """
@@ -54,6 +62,9 @@ _SCAN_TILE_D = 128
 _SCAN_RANGES = 128
 #: Largest C of the top-C kernel (its list lives in registers).
 _TOPC_MAX = 8
+#: Most files of one K2 launch (their n_valid ride the launch arguments by
+#: value; csrc/refine_window.cu kMaxFiles).
+_REFINE_MAX_FILES = 16
 #: The refine window's box-mean budget on the TPU (bytes of means). The
 #: card needs no such cap; the gate keeps it so that the port selects the
 #: same geometries as the JAX kernel path until the cap is lifted.
@@ -118,10 +129,15 @@ def _fill_nums(r, b, no, nm, t):
         nm.add_(torch.mul(r[:, N - 1 - j : N - j], b[j], out=t))
 
 
+def _stack_of_one(*tensors):
+    """Each tensor (None stays None) with a leading file axis of 1."""
+    return tuple(None if t is None else t[None] for t in tensors)
+
+
 def _check_scan_args(name, r_c, bankT, w, valid, thresh):
-    """The K1/K3 wrappers' input checks; returns (M, N, D)."""
-    M, N = r_c.shape
-    D = bankT.shape[1]
+    """The K1/K3 wrappers' input checks on a stack; returns (B, M, N, D)."""
+    B, M, N = r_c.shape
+    D = bankT.shape[2]
     f32 = (torch.float32,)
     args = {"r_c": r_c, "bankT": bankT, "w": w, "valid": valid}
     types = [f32, f32, f32, (torch.int8, torch.bool)]
@@ -129,13 +145,13 @@ def _check_scan_args(name, r_c, bankT, w, valid, thresh):
         args["thresh"] = thresh
         types.append(f32)
     _cuda_args(name, args, types, r_c.device)
-    if bankT.shape[0] != N or w.shape != (D,) or valid.shape != (D,) or (
-        thresh is not None and thresh.shape != (D,)
+    if bankT.shape != (B, N, D) or w.shape != (B, D) or valid.shape != (B, D) or (
+        thresh is not None and thresh.shape != (B, D)
     ):
         raise ValueError(f"{name}: shapes disagree")
-    if N not in _KERNEL_N or M == 0 or D == 0:
-        raise ValueError(f"{name}: no kernel for M={M}, N={N}, D={D}")
-    return M, N, D
+    if N not in _KERNEL_N or M == 0 or D == 0 or not 1 <= B <= 65535:
+        raise ValueError(f"{name}: no kernel for B={B}, M={M}, N={N}, D={D}")
+    return B, M, N, D
 
 
 # --- K1 -------------------------------------------------------------------
@@ -146,7 +162,17 @@ def search_scan_ref(r_c, bankT, w, valid, thresh=None, s_clip=0.0,
     """Plain PyTorch K1, blocked over ranges and domains so no (M, D) score
     tensor exists; the block temporaries are reused in place. Returns
     (score (M,) float32, idx (M,) int32): the lowest-index maximum of
-    max(s_o, s_m) over valid domains, -inf and 0 where none is valid."""
+    max(s_o, s_m) over valid domains, -inf and 0 where none is valid. A
+    stack (r_c (B, M, N), every other tensor with the same leading axis) is
+    a loop over its files; returns (B, M) each."""
+    if r_c.dim() == 3:
+        per_file = [
+            search_scan_ref(r_c[b], bankT[b], w[b], valid[b],
+                            None if thresh is None else thresh[b], s_clip,
+                            range_block, domain_block)
+            for b in range(r_c.shape[0])
+        ]
+        return tuple(torch.stack(x) for x in zip(*per_file))
     M, N = r_c.shape
     D = bankT.shape[1]
     dev = r_c.device
@@ -193,30 +219,35 @@ def search_scan(r_c, bankT, w, valid, thresh=None, s_clip=0.0):
     orientation-folded gain max(num_o^2 w, num_m^2 w) (clip-aware where
     `thresh` is given), -inf for invalid domains. r_c (M, N) centered
     ranges, bankT (N, D), w (D,), valid (D,) int8 or bool, thresh (D,) or
-    None. Returns (score (M,) float32, idx (M,) int32)."""
+    None. Returns (score (M,) float32, idx (M,) int32). A stack of files
+    (r_c (B, M, N), bankT (B, N, D), w, valid, thresh (B, D)) is one
+    launch and returns (B, M) each."""
     dev = r_c.device
     if dev.type == "cpu":
         return search_scan_ref(r_c, bankT, w, valid, thresh, s_clip)
     if dev.type != "cuda":
         raise ValueError(f"search_scan: unsupported device {dev}")
-    M, N, D = _check_scan_args("search_scan", r_c, bankT, w, valid, thresh)
+    if r_c.dim() == 2:
+        score, idx = search_scan(*_stack_of_one(r_c, bankT, w, valid, thresh), s_clip)
+        return score[0], idx[0]
+    B, M, N, D = _check_scan_args("search_scan", r_c, bankT, w, valid, thresh)
 
     from . import _build
 
     lib = _build.load()
-    # split the domains over blockIdx.y when the ranges alone would leave
-    # the card's SMs idle (the exact branch: few ranges, a large bank)
+    # split the domains over blockIdx.y when the ranges of all files would
+    # leave the card's SMs idle (the exact branch: few ranges, a large bank)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    range_blocks = -(-M // _SCAN_RANGES)
+    range_blocks = B * -(-M // _SCAN_RANGES)
     tiles = -(-D // _SCAN_TILE_D)
     n_split = max(1, min(-(-4 * sms // range_blocks), tiles))
     d_per_split = -(-tiles // n_split) * _SCAN_TILE_D
     n_split = -(-D // d_per_split)
-    score = torch.empty(M, dtype=torch.float32, device=dev)
-    idx = torch.empty(M, dtype=torch.int32, device=dev)
+    score = torch.empty((B, M), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, M), dtype=torch.int32, device=dev)
     if n_split > 1:
-        part_s = torch.empty((n_split, M), dtype=torch.float32, device=dev)
-        part_i = torch.empty((n_split, M), dtype=torch.int32, device=dev)
+        part_s = torch.empty((B, n_split, M), dtype=torch.float32, device=dev)
+        part_i = torch.empty((B, n_split, M), dtype=torch.int32, device=dev)
     else:
         part_s, part_i = score, idx
     with torch.cuda.device(dev):
@@ -224,7 +255,7 @@ def search_scan(r_c, bankT, w, valid, thresh=None, s_clip=0.0):
         code = lib.fwav_search_scan(
             _ptr(r_c), _ptr(bankT), _ptr(w), _ptr(valid),
             _ptr(thresh) if thresh is not None else None,
-            abs(float(s_clip)), M, N, D, n_split, d_per_split,
+            abs(float(s_clip)), B, M, N, D, n_split, d_per_split,
             _ptr(part_s), _ptr(part_i), _ptr(score), _ptr(idx),
             ctypes.c_void_p(stream),
         )
@@ -250,7 +281,17 @@ def topc_scan_ref(r_c, bankT, w, valid, top_c: int, thresh=None, s_clip=0.0,
     The TPU kernel's cascade differs on exact ties: an entry it displaces
     moves on with a strict > and lands behind later entries of its own
     score, so its order of equal scores depends on its domain block. This
-    version keeps the order of its oracle, gain_topk_scan."""
+    version keeps the order of its oracle, gain_topk_scan.
+
+    A stack (r_c (B, M, N), every other tensor with the same leading axis)
+    is a loop over its files; returns (B, M, top_c)."""
+    if r_c.dim() == 3:
+        return torch.stack([
+            topc_scan_ref(r_c[b], bankT[b], w[b], valid[b], top_c,
+                          None if thresh is None else thresh[b], s_clip,
+                          range_block, domain_block)
+            for b in range(r_c.shape[0])
+        ])
     M, N = r_c.shape
     D = bankT.shape[1]
     dev = r_c.device
@@ -317,7 +358,9 @@ def topc_scan(r_c, bankT, w, valid, top_c: int, thresh=None, s_clip=0.0):
 
     The result is the transposed view of a (top_c, M) tensor (each lobe
     column idx[:, c] is contiguous); refine_window reads it through its
-    strides, without a copy."""
+    strides, without a copy. A stack of files (a leading axis B on every
+    tensor) is one launch and returns (B, M, top_c), the view of a
+    (B, top_c, M) tensor."""
     if not 1 <= top_c <= _TOPC_MAX:
         raise ValueError(f"topc_scan: top_c={top_c} is outside 1..{_TOPC_MAX}")
     dev = r_c.device
@@ -325,23 +368,26 @@ def topc_scan(r_c, bankT, w, valid, top_c: int, thresh=None, s_clip=0.0):
         return topc_scan_ref(r_c, bankT, w, valid, top_c, thresh, s_clip)
     if dev.type != "cuda":
         raise ValueError(f"topc_scan: unsupported device {dev}")
-    M, N, D = _check_scan_args("topc_scan", r_c, bankT, w, valid, thresh)
+    if r_c.dim() == 2:
+        return topc_scan(*_stack_of_one(r_c, bankT, w, valid), top_c,
+                         *_stack_of_one(thresh), s_clip)[0]
+    B, M, N, D = _check_scan_args("topc_scan", r_c, bankT, w, valid, thresh)
 
     from . import _build
 
     lib = _build.load()
-    out = torch.empty((top_c, M), dtype=torch.int32, device=dev)
+    out = torch.empty((B, top_c, M), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fwav_topc_scan(
             _ptr(r_c), _ptr(bankT), _ptr(w), _ptr(valid),
             _ptr(thresh) if thresh is not None else None,
-            abs(float(s_clip)), M, N, D, top_c, _ptr(out),
+            abs(float(s_clip)), B, M, N, D, top_c, _ptr(out),
             ctypes.c_void_p(stream),
         )
     _build.check(lib, code, "topc_scan")
     LAUNCHES["topc_scan"] += 1
-    return out.T
+    return out.transpose(1, 2)
 
 
 # --- K2 -------------------------------------------------------------------
@@ -382,9 +428,13 @@ def window_stats_ref(means_ext, n: int, block_len: int, objective: str = "balanc
     past the end), in refine_window_ref's arithmetic. Returns (L,)
     float32: the balanced weight; for affine and damped the taps' centered
     energy denom (denom + eps and the damped clip threshold c*denom are
-    one operation each from it)."""
+    one operation each from it). A stack means_ext (B, L) is a loop over
+    its files; returns (B, L)."""
     if objective not in _OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
+    if means_ext.dim() == 2:
+        return torch.stack([window_stats_ref(m, n, block_len, objective)
+                            for m in means_ext])
     q = torch.arange(means_ext.shape[0], device=means_ext.device)
     mean, denom, denom_eps = _position_stats(
         _window_taps(means_ext, q, n, block_len), n)
@@ -395,15 +445,18 @@ def window_stats_ref(means_ext, n: int, block_len: int, objective: str = "balanc
 
 def window_stats(means_ext, n: int, block_len: int, objective: str = "balanced"):
     """The per-position table of K2 (see window_stats_ref), computed once
-    per box-mean sequence by its own kernel on a CUDA tensor."""
+    per box-mean sequence by its own kernel on a CUDA tensor; a stack
+    means_ext (B, L) is one launch and returns (B, L)."""
     dev = means_ext.device
     if dev.type == "cpu":
         return window_stats_ref(means_ext, n, block_len, objective)
     if dev.type != "cuda":
         raise ValueError(f"window_stats: unsupported device {dev}")
+    if means_ext.dim() == 1:
+        return window_stats(means_ext[None], n, block_len, objective)[0]
     _cuda_args("window_stats", {"means_ext": means_ext}, [(torch.float32,)], dev)
-    L = means_ext.shape[0] if means_ext.dim() == 1 else 0
-    if n not in _KERNEL_N or L == 0 or objective not in _OBJECTIVES:
+    B, L = means_ext.shape if means_ext.dim() == 2 else (0, 0)
+    if n not in _KERNEL_N or L == 0 or objective not in _OBJECTIVES or not 1 <= B <= 65535:
         raise ValueError(
             f"window_stats: no kernel for means_ext {tuple(means_ext.shape)}, "
             f"N={n}, objective={objective!r}"
@@ -412,11 +465,11 @@ def window_stats(means_ext, n: int, block_len: int, objective: str = "balanced")
     from . import _build
 
     lib = _build.load()
-    out = torch.empty(L, dtype=torch.float32, device=dev)
+    out = torch.empty((B, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fwav_window_stats(
-            _ptr(means_ext), L, n, int(block_len), _OBJECTIVES[objective],
+            _ptr(means_ext), B, L, n, int(block_len), _OBJECTIVES[objective],
             np.float32(1.0 / n).item(), _ptr(out), ctypes.c_void_p(stream),
         )
     _build.check(lib, code, "window_stats")
@@ -476,7 +529,16 @@ def refine_window_ref(means_ext, lobes, ranges, n_valid: int, stride: int,
     """Plain PyTorch K2. lobes (M,) or (M, C): each lobe column is refined
     on its own and a later column takes a range only with a strictly higher
     score (the earlier lobe wins ties). Returns (score (M,) float32, idx
-    (M,) int32)."""
+    (M,) int32). A stack (means_ext (B, L), lobes (B, M) or (B, M, C),
+    ranges (B, M, N), n_valid B ints) is a loop over its files; returns
+    (B, M) each."""
+    if ranges.dim() == 3:
+        per_file = [
+            refine_window_ref(means_ext[b], lobes[b], ranges[b], int(n_valid[b]),
+                              stride, block_len, objective, s_clip)
+            for b in range(ranges.shape[0])
+        ]
+        return tuple(torch.stack(x) for x in zip(*per_file))
     cols = [lobes] if lobes.dim() == 1 else list(lobes.unbind(1))
     best = None
     for col in cols:
@@ -504,30 +566,43 @@ def refine_window(means_ext, lobes, ranges, n_valid: int, stride: int,
     wins ties. `stats` is window_stats(...) of the same means_ext, range
     size, block_len and objective, computed here when not given.
     Returns (score (M,) float32, idx (M,) int32 clipped to
-    [0, n_valid - 1])."""
+    [0, n_valid - 1]).
+
+    A stack of up to 16 files is one launch: means_ext (B, L), lobes
+    (B, M) or (B, M, C) with any strides, ranges (B, M, N), n_valid a
+    sequence of B ints (the files of a stack share every size but this
+    one), stats (B, L); returns (B, M) each."""
     dev = ranges.device
     if dev.type == "cpu":
         return refine_window_ref(means_ext, lobes, ranges, n_valid, stride,
                                  block_len, objective, s_clip)
     if dev.type != "cuda":
         raise ValueError(f"refine_window: unsupported device {dev}")
-    M, n = ranges.shape
-    if means_ext.dim() != 1 or lobes.dim() not in (1, 2) or lobes.shape[0] != M:
+    if ranges.dim() == 2:
+        score, idx = refine_window(
+            *_stack_of_one(means_ext, lobes, ranges), [int(n_valid)], stride,
+            block_len, objective, s_clip, *_stack_of_one(stats))
+        return score[0], idx[0]
+    B, M, n = ranges.shape
+    n_valid = [int(v) for v in n_valid]
+    if (means_ext.dim() != 2 or lobes.dim() not in (2, 3) or lobes.shape[:2] != (B, M)
+            or means_ext.shape[0] != B or len(n_valid) != B):
         raise ValueError("refine_window: shapes disagree")
-    if n not in _KERNEL_N or M == 0 or lobes.numel() == 0 or objective not in _OBJECTIVES:
+    if (n not in _KERNEL_N or M == 0 or lobes.numel() == 0 or objective not in _OBJECTIVES
+            or B > _REFINE_MAX_FILES):
         raise ValueError(
-            f"refine_window: no kernel for M={M}, N={n}, lobes "
+            f"refine_window: no kernel for B={B}, M={M}, N={n}, lobes "
             f"{tuple(lobes.shape)}, objective={objective!r}"
         )
-    L = means_ext.shape[0]
-    if L < n_valid + stride:
+    L = means_ext.shape[1]
+    if L < max(n_valid) + stride:
         raise ValueError(
             f"refine_window: means_ext holds {L} values, fewer than the "
-            f"stride-wide lead and n_valid = {n_valid} positions"
+            f"stride-wide lead and n_valid = {max(n_valid)} positions"
         )
     if stats is None:
         stats = window_stats(means_ext, n, block_len, objective)
-    elif stats.shape != (L,):
+    elif stats.shape != (B, L):
         raise ValueError("refine_window: stats is not window_stats of this means_ext")
     f32 = (torch.float32,)
     _cuda_args(
@@ -538,19 +613,21 @@ def refine_window(means_ext, lobes, ranges, n_valid: int, stride: int,
     if lobes.device != dev or lobes.dtype != torch.int32:
         raise TypeError(f"refine_window: lobes is {lobes.dtype} on {lobes.device}, "
                         f"expected int32 on {dev}")
-    C = 1 if lobes.dim() == 1 else lobes.shape[1]
-    stride_m, stride_c = lobes.stride(0), (0 if lobes.dim() == 1 else lobes.stride(1))
+    C = 1 if lobes.dim() == 2 else lobes.shape[2]
+    stride_b, stride_m = lobes.stride(0), lobes.stride(1)
+    stride_c = 0 if lobes.dim() == 2 else lobes.stride(2)
 
     from . import _build
 
     lib = _build.load()
-    score = torch.empty(M, dtype=torch.float32, device=dev)
-    idx = torch.empty(M, dtype=torch.int32, device=dev)
+    score = torch.empty((B, M), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, M), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fwav_refine_window(
-            _ptr(means_ext), _ptr(stats), L, _ptr(lobes), C, stride_m, stride_c,
-            _ptr(ranges), M, n, int(n_valid), int(stride), int(block_len),
+            _ptr(means_ext), _ptr(stats), B, L, _ptr(lobes), C, stride_b, stride_m,
+            stride_c, _ptr(ranges), M, n, (ctypes.c_int * B)(*n_valid), int(stride),
+            int(block_len),
             _OBJECTIVES[objective], np.float32(abs(float(s_clip))).item(),
             _ptr(score), _ptr(idx), ctypes.c_void_p(stream),
         )

@@ -1,15 +1,17 @@
 """Per-domain selection weights, the selection gain and the staged window
 refine: the torch counterparts of fwav_tpu/ops/search.py's
-`domain_weights`, `domain_thresh`, `_gain_from_num`, `_window_gains` and
-`refine_from_lobes` (its non-sharded form). The scans themselves are the
-kernels in ops/kernels.py; the staged refine has no kernel behind it in
-the JAX package either (jnp gathers), so torch ops are its port."""
+`domain_weights`, `domain_thresh`, `_gain_from_num`, `_window_gains`,
+`refine_from_lobes` (its non-sharded form) and, by name, `gain_topk_scan`.
+The scans themselves are the kernels in ops/kernels.py; the staged refine
+has no kernel behind it in the JAX package either (jnp gathers), so torch
+ops are its port."""
 
 from __future__ import annotations
 
 import torch
 
 from .affine import row_mean, row_sum
+from .kernels import topc_scan_ref
 
 _EPS = 1e-12
 _NEG = float("-inf")
@@ -44,6 +46,20 @@ def _gain_from_num(num, weight, thresh, s_clip):
     a = torch.abs(num)
     c = abs(s_clip)
     return torch.where(a > thresh, c * (2.0 * a - thresh), g)
+
+
+def gain_topk_scan(r_c, bank_sub, d_weight, d_valid, top_c: int, domain_block: int = 512,
+                   d_thresh=None, s_clip=None):
+    """Top-C gain candidates per range over a (subsampled) bank, under the
+    JAX package's name and argument order: r_c (M, N) centered ranges,
+    bank_sub (Dc, N), d_weight and d_valid (Dc,). The plain version of K3
+    (`topc_scan_ref`), whose order it specifies: score descending, the
+    lower index first on ties. Returns idx (M, C) int32, -1 where fewer
+    than C domains have a finite score. On the card the encode runs K3
+    instead (ops/kernels.py topc_scan)."""
+    return topc_scan_ref(r_c, bank_sub.T.contiguous(), d_weight, d_valid, top_c,
+                         d_thresh, 0.0 if s_clip is None else s_clip,
+                         domain_block=domain_block)
 
 
 def _window_gains(r_c, bank, cand, valid, objective: str, s_clip):

@@ -109,8 +109,10 @@ def test_v3_raises(tmp_path):
     rec, bank, N = _records("random")
     p = tmp_path / "multi.fwav"
     save_compressed_multi(p, [(rec, bank, *_hdr(rec, N))] * 2)
-    with pytest.raises(NotImplementedError, match="multichannel"):
+    with pytest.raises(ValueError, match="load_compressed_multi"):
         port.load_compressed_arrays(p)
+    with pytest.raises(ValueError, match="Multichannel"):  # the JAX package's words
+        jax_load(str(p))
 
 
 @pytest.mark.parametrize("prob_bits", [12, 16])

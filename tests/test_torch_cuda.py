@@ -352,3 +352,145 @@ def test_argmax_keeps_the_first_max_on_the_card(dev):
     big = torch.zeros((41, 1 << 16), device=dev)
     big[[7, 30]] = 1.0
     assert (big.argmax(0) == 7).all()
+
+
+# --- stacks of files: one launch, the file axis in the kernel's grid --------
+
+
+def _stack(files):
+    """Per-file argument tuples -> one tuple with a leading file axis on
+    every tensor (None stays None; scalars are the first file's)."""
+    return tuple(
+        torch.stack([f[k] for f in files]).contiguous() if torch.is_tensor(files[0][k])
+        else files[0][k]
+        for k in range(len(files[0]))
+    )
+
+
+def _k1_files(dev, B, M, D, N, objective):
+    """B files' scan inputs: every second file has the callers' valid
+    prefix, each cut at its own length; the others a random valid."""
+    files = []
+    for b in range(B):
+        f = _k1(dev, 100 * b + M + D, M, D, N, objective, prefix=b % 2 == 0)
+        if b % 2 == 0:
+            f[3][D - 37 - 53 * b :] = False
+        files.append(f)
+    return files
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("B,M,D,N", [(3, 1000, 3000, 4), (16, 50, 20000, 4), (5, 333, 1111, 7),
+                                     (2, 1003, 4099, 16), (16, 77, 1029, 4)])
+def test_search_scan_stack_equals_single_launches(dev, objective, B, M, D, N):
+    """One launch over B files (ragged M and D; a shape whose single
+    launch splits the domains and whose stack does not) gives, bit for bit,
+    the B single launches and the plain version's loop."""
+    files = _k1_files(dev, B, M, D, N, objective)
+    stack = _stack(files)
+    before = kernels.LAUNCHES["search_scan"]
+    s, i = kernels.search_scan(*stack)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["search_scan"] == before + 1
+    assert s.shape == (B, M) and i.shape == (B, M)
+    for b, f in enumerate(files):
+        s_b, i_b = kernels.search_scan(*f)
+        assert torch.equal(i[b], i_b) and torch.equal(s[b], s_b), b
+    s_p, i_p = kernels.search_scan_ref(*stack)
+    assert torch.equal(i, i_p) and torch.equal(s, s_p)
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+@pytest.mark.parametrize("B,M,D,N,C", [(3, 3000, 5000, 4, 4), (16, 77, 1029, 4, 1),
+                                       (4, 1003, 4099, 16, 8), (7, 333, 1111, 7, 2)])
+def test_topc_scan_stack_equals_single_launches(dev, objective, B, M, D, N, C):
+    files = _k1_files(dev, B, M, D, N, objective)
+    r_c, bankT, w, valid, t, c = _stack(files)
+    before = kernels.LAUNCHES["topc_scan"]
+    got = kernels.topc_scan(r_c, bankT, w, valid, C, t, c)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["topc_scan"] == before + 1
+    assert got.shape == (B, M, C)
+    for b, f in enumerate(files):
+        assert torch.equal(got[b], kernels.topc_scan(*f[:4], C, f[4], f[5])), b
+    assert torch.equal(got, kernels.topc_scan_ref(r_c, bankT, w, valid, C, t, c))
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("B,M,n,C,pad", [(3, 3001, 4, 4, 1024), (16, 500, 4, 1, 1024),
+                                         (5, 777, 7, 2, 1023), (2, 1000, 16, 8, 1024)])
+def test_refine_window_stack_equals_single_launches(dev, objective, B, M, n, C, pad):
+    """K2 and its table over B files whose n_valid differ (pad 1023 keeps
+    every file but the first off the 16-byte loads' alignment: the launch
+    then reads float by float, as each single launch does)."""
+    files = [_k2(dev, 31 * b + n + C, M, n, C, pad=pad) for b in range(B)]
+    ext, ranges = (torch.stack([f[k] for f in files]) for k in (0, 2))
+    # K3's layout: (B, C, M) seen as (B, M, C)
+    lobes = torch.stack([f[1].T for f in files]).transpose(1, 2)
+    assert not lobes.is_contiguous() or C == 1
+    n_valid = [f[3] - 97 * b for b, f in enumerate(files)]
+    stride, block_len = files[0][4:]
+    before = dict(kernels.LAUNCHES)
+    s, i = kernels.refine_window(ext, lobes, ranges, n_valid, stride, block_len,
+                                 objective, 2.0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["refine_window"] == before["refine_window"] + 1
+    assert kernels.LAUNCHES["window_stats"] == before["window_stats"] + 1
+    table = kernels.window_stats(ext, n, block_len, objective)
+    assert torch.equal(table, kernels.window_stats_ref(ext, n, block_len, objective))
+    for b, f in enumerate(files):
+        s_b, i_b = kernels.refine_window(f[0], f[1], f[2], n_valid[b], stride, block_len,
+                                         objective, 2.0)
+        assert torch.equal(i[b], i_b) and torch.equal(s[b], s_b), b
+        assert torch.equal(table[b], kernels.window_stats(f[0], n, block_len, objective))
+    s_p, i_p = kernels.refine_window_ref(ext, lobes, ranges, n_valid, stride, block_len,
+                                         objective, 2.0)
+    assert torch.equal(i, i_p) and torch.equal(s, s_p)
+    # the (B, M) form, or a row-major (B, M, C) tensor
+    other = lobes[:, :, 0].contiguous() if C == 1 else lobes.contiguous()
+    s_1, i_1 = kernels.refine_window(ext, other, ranges, n_valid, stride, block_len,
+                                     objective, 2.0)
+    assert torch.equal(i_1, i) and torch.equal(s_1, s)
+
+
+def test_refine_window_refuses_a_stack_over_16_files(dev):
+    ext, lobes, ranges, n_valid, stride, block_len = _k2(dev, 2, 64, 4, 1)
+    B = 17
+    with pytest.raises(ValueError, match="no kernel for B=17"):
+        kernels.refine_window(ext.expand(B, -1).contiguous(), lobes.expand(B, -1, -1),
+                              ranges.expand(B, -1, -1).contiguous(), [n_valid] * B,
+                              stride, block_len, "balanced", 2.0)
+
+
+@pytest.mark.parametrize("kw,refine", [({}, "window"), ({"objective": "damped"}, "window"),
+                                        ({"tile_size": 512}, "staged"),
+                                        ({"tile_size": 512, "objective": "damped"}, "staged")])
+def test_packed_encode_on_the_card_equals_the_single_encodes(dev, kw, refine):
+    """A stack of three 3 s files of one bucket and one shorter file: every
+    file's result equals its own single encode on the card exactly, the
+    scan kernel launches once per stack, and K2 with its table only where
+    the plan takes the window refine."""
+    from fwav_tpu_torch.models import encode as enc
+
+    base = bench.make_signal(3.0)
+    sigs = []
+    for k in range(3):
+        rng = np.random.default_rng(50 + k)
+        sigs.append(np.round(base * (0.6 + 0.1 * k)
+                             + rng.normal(0, 20, len(base))).astype(np.float32))
+    sigs.append(sigs[0][: 2 * 44100 + 123].copy())
+    cfg = port.EncoderConfig(**kw)
+    _, _, _, lb, db = enc._prep_signal(sigs[0], cfg)
+    assert enc._plan_search(cfg, lb // cfg.range_size, db)[2] == refine
+    kernels.reset_launch_counts()
+    packed = port.compress_audio_packed(sigs, 44100, 2, device="cuda", **kw)
+    launches = dict(kernels.LAUNCHES)
+    scan = "topc_scan" if cfg.objective == "damped" else "search_scan"
+    k2 = 2 if refine == "window" else 0
+    assert launches[scan] == 2 and launches["refine_window"] == k2
+    assert launches["window_stats"] == k2
+    for sig, got in zip(sigs, packed):
+        one = port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
+        np.testing.assert_array_equal(got[0].view(np.uint8), one[0].view(np.uint8))
+        np.testing.assert_array_equal(got[1], one[1])
+        assert tuple(got[2:]) == tuple(one[2:])

@@ -9,7 +9,13 @@ each package's own order), and the convergence counters agree: the same
 iteration count and converged flag, final delta to rtol 1e-4 or atol 1e-7
 (near convergence the relative delta is the norm of a few float32 ulps
 per sample, so its low digits are rounding). The closed form is
-bit-equal."""
+bit-equal.
+
+decompress_segment, with the cases of tests/test_segment_decode.py: at
+s_damping=0 bit-equal to the slice of the full decode and to the JAX
+package's segment; on the loop within rtol 1e-5, atol 1e-3 on 16-bit-scale
+samples (the stop test sees another chunk), the sentinel region exactly
+zero."""
 
 import numpy as np
 import pytest
@@ -128,3 +134,83 @@ def test_damped_loop_reaches_the_stored_transform():
                                 s_damping=0.5, device="cpu")
     want = (rec["s"][:, None] * bank[rec["idx"]] + rec["o"][:, None]).reshape(-1)
     np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+def _segment_fixture():
+    """tests/test_segment_decode.py's signal (1.3 s at 16 kHz with a silent
+    gap), encoded at tile 128 by the port on the CPU and pruned."""
+    if "seg" not in _SEG:
+        rng = np.random.default_rng(2)
+        sr = 16000
+        t = np.arange(int(sr * 1.3)) / sr
+        sig = 0.4 * np.sin(2 * np.pi * 330 * t) + 0.1 * np.sin(2 * np.pi * 990 * t)
+        sig += 0.01 * rng.standard_normal(len(t))
+        sig[int(0.4 * sr) : int(0.55 * sr)] = 0.0
+        sig = np.round(sig * 16000).astype(np.float32)
+        rec, bank, n_ranges, N, *_, olen = port.compress_audio_arrays(
+            sig, sr, 2, tile_size=128, device="cpu")
+        rec, bank = port.prune_bank(rec, bank)
+        full = port.decompress_audio(rec, bank, n_ranges, N, original_len=olen, device="cpu")
+        _SEG["seg"] = (sr, rec, bank, n_ranges, N, olen, full)
+    return _SEG["seg"]
+
+
+_SEG = {}
+
+
+@pytest.mark.parametrize("a,b", [
+    (0, 4096),           # aligned head
+    (4097, 9337),        # unaligned at both ends, across the silent gap
+    (3, 5),              # inside one range
+    (20000, 10**9),      # the tail; end clamped to the file
+    (-5, 100),           # a negative start clamps to 0
+])
+def test_segment_bit_equals_sliced_full_decode(a, b):
+    sr, rec, bank, n_ranges, N, olen, full = _segment_fixture()
+    seg = port.decompress_segment(rec, bank, n_ranges, N, a, b, original_len=olen,
+                                  device="cpu")
+    assert seg.dtype == np.float32
+    np.testing.assert_array_equal(seg, full[max(0, a) : min(b, olen)])
+    np.testing.assert_array_equal(seg, jax_decode_mod.decompress_segment(
+        rec, bank, n_ranges, N, a, b, original_len=olen))
+
+
+def test_segment_empty_windows():
+    _, rec, bank, n_ranges, N, olen, _ = _segment_fixture()
+    for a, b, kw in ((100, 100, {}), (500, 100, {}), (olen + 5, olen + 9, {"original_len": olen})):
+        seg = port.decompress_segment(rec, bank, n_ranges, N, a, b, device="cpu", **kw)
+        assert seg.size == 0 and seg.dtype == np.float32
+    assert port.decompress_segment(rec[:0], bank, 0, N, 0, 10, device="cpu").size == 0
+    # without original_len the file ends with its last whole range
+    tail = port.decompress_segment(rec, bank, n_ranges, N, olen - 2, 10**9, device="cpu")
+    assert tail.size == n_ranges * N - olen + 2
+
+
+@pytest.mark.parametrize("s_damping", [0.5, 0.25])
+def test_segment_on_the_loop(s_damping):
+    sr, rec, bank, n_ranges, N, olen, _ = _segment_fixture()
+    a, b = int(0.35 * sr), int(0.6 * sr)
+    kw = dict(original_len=olen, s_damping=s_damping, device="cpu")
+    full = port.decompress_audio(rec, bank, n_ranges, N, **kw)
+    stats = {}
+    seg = port.decompress_segment(rec, bank, n_ranges, N, a, b, stats=stats, **kw)
+    np.testing.assert_allclose(seg, full[a:b], rtol=1e-5, atol=1e-3)
+    assert stats["iterations"] >= 1
+    gap = slice(int(0.42 * sr) - a, int(0.53 * sr) - a)
+    assert not seg[gap].any()
+    np.testing.assert_allclose(seg, jax_decode_mod.decompress_segment(
+        rec, bank, n_ranges, N, a, b, original_len=olen, s_damping=s_damping),
+        rtol=1e-5, atol=1e-3)
+
+
+def test_decode_mesh_argument():
+    """mesh=None is accepted, as the JAX signature has it; anything else
+    names the multi-GPU item."""
+    rec, bank = _fixture()
+    out = port.decompress_audio(rec, bank, len(rec), 4, mesh=None, device="cpu")
+    np.testing.assert_array_equal(out, port.decompress_audio(rec, bank, len(rec), 4,
+                                                             device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        port.decompress_audio(rec, bank, len(rec), 4, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        port.decompress_segment(rec, bank, len(rec), 4, 0, 8, mesh=object(), device="cpu")

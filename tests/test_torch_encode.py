@@ -271,6 +271,57 @@ def test_cpu_run_launches_no_kernel(speechlike):
     assert not any(kernels.LAUNCHES.values())
 
 
+def _assert_encode_bar(sig, J, T, cfg, max_diffs):
+    """The Encode bar: the same sentinel set; idx equal except at near-ties
+    (float64 balanced gains to rtol 1e-5; for damped the float32 window
+    scores to DAMPED_RTOL), at most max_diffs of them; records of agreeing
+    rows bit-identical; round-trip SNR within 0.01 dB. Returns the count of
+    differing rows."""
+    rec_j, bank_j, n_ranges, range_size, *_ = J
+    rec_t, bank_t, *_ = T
+    assert tuple(J[2:]) == tuple(T[2:])
+    np.testing.assert_array_equal(bank_t, bank_j)
+    np.testing.assert_array_equal(rec_t["idx"] < 0, rec_j["idx"] < 0)
+    assert (rec_t["idx"] >= 0).any()
+    diff = np.nonzero(rec_t["idx"] != rec_j["idx"])[0]
+    assert len(diff) <= max_diffs, len(diff)
+    if len(diff) and cfg.objective == "damped":
+        assert cfg.domain_step == 1
+        B = cfg.tile_size // range_size
+        np.testing.assert_allclose(
+            _damped_scores32(sig, range_size, diff, rec_t["idx"][diff], B=B),
+            _damped_scores32(sig, range_size, diff, rec_j["idx"][diff], B=B),
+            rtol=DAMPED_RTOL,
+        )
+    elif len(diff):
+        np.testing.assert_allclose(
+            _gains(sig, range_size, bank_j, rec_t["idx"][diff], diff),
+            _gains(sig, range_size, bank_j, rec_j["idx"][diff], diff), rtol=1e-5,
+        )
+    same = rec_t["idx"] == rec_j["idx"]
+    np.testing.assert_array_equal(rec_t[same].view(np.uint8), rec_j[same].view(np.uint8))
+    snr_j = _snr(sig, J, jax_decode)
+    snr_t = _snr(sig, T, port.decompress_audio, device="cpu")
+    assert abs(snr_t - snr_j) <= 0.01, (snr_t, snr_j)
+    return len(diff)
+
+
+def _staged_parity(sig, sr, kw, refine="staged"):
+    """One signal through both packages on a geometry whose coarse refine
+    is `refine` in the port's plan; held to the Encode bar, 2 differing
+    rows per 1,024 at most."""
+    jcfg = JaxEncoderConfig(use_pallas=True, **kw)
+    cfg = EncoderConfig.from_reference(dataclasses.asdict(jcfg))
+    _, _, _, lb, db = port_encode._prep_signal(sig, cfg)
+    plan = port_encode._plan_search(cfg, lb // cfg.range_size, db)
+    assert plan[0] == "coarse" and plan[2] == refine, plan
+    kernels.reset_launch_counts()
+    J = jax_encode(sig, sr, 2, config=jcfg)
+    T = port.compress_audio_arrays(sig, sr, 2, config=cfg, device="cpu")
+    assert not any(kernels.LAUNCHES.values())
+    return _assert_encode_bar(sig, J, T, cfg, 2 * -(-J[2] // 1024))
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(objective="damped", search="coarse", tile_size=512), "staged refine"),
     (dict(search="coarse", coarse_topc=2, tile_size=512), "staged refine"),
@@ -278,33 +329,93 @@ def test_cpu_run_launches_no_kernel(speechlike):
     (dict(search="coarse", tile_size=256), "staged refine"),
 ])
 def test_unported_geometry_raises(kw, match):
-    """What the JAX package runs outside its kernels raises, naming the
-    ROADMAP item, instead of running something else: with several lobes,
-    a coarse stride under 128 (tile 512) fails the window refine's gate,
-    and the JAX package runs coarse_refine_search there."""
+    """What is not ported raises, naming the ROADMAP item, instead of
+    running something else: search="topk". The geometries that used to
+    raise with it now run where the JAX package runs them, in the staged
+    refine (a coarse stride under 128 fails the window refine's gate:
+    stride 64 at tile 512, with four damped lobes or two balanced ones, and
+    stride 32 at tile 256 with one lobe), and are held to the JAX CPU run
+    at the Encode bar."""
     sig = _sig(40000)[0]
-    with pytest.raises(NotImplementedError, match=match):
-        port.compress_audio_arrays(sig, 16000, 2, config=EncoderConfig(**kw), device="cpu")
+    if match == "topk":
+        with pytest.raises(NotImplementedError, match=match):
+            port.compress_audio_arrays(sig, 16000, 2, config=EncoderConfig(**kw), device="cpu")
+        return
+    _staged_parity(sig, 16000, kw)
+
+
+def test_staged_tile_2048_matches_jax():
+    """Tile 2048 gives range size 8 and domain_step 2, which the window
+    refine's gate refuses: K1, then the staged refine over the full bank."""
+    _staged_parity(_sig(66000)[0], 16000, dict(search="coarse", tile_size=2048))
+
+
+@pytest.fixture
+def small_means_cap(monkeypatch):
+    """The window refine's means cap lowered to 64 KB in both packages, so
+    that a 4 s file's bank is over it. The JAX core is cached per config
+    (lru_cache, jit) and reads the cap when it is traced, so the tests that
+    use this take configs no other test uses (s_clip 15.5)."""
+    import fwav_tpu.ops.pallas_search as jax_kernels
+
+    monkeypatch.setattr(jax_kernels, "_REFINE_VMEM_MEANS_BYTES", 1 << 16)
+    monkeypatch.setattr(kernels, "_REFINE_VMEM_MEANS_BYTES", 1 << 16)
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+def test_over_cap_bank_matches_jax(small_means_cap, objective):
+    """A bank over the means cap at the default geometry (stride 128): the
+    scan reads the subsampled rows of the full bank and the staged refine
+    replaces K2; one lobe takes its (16, 4) descent, four damped lobes are
+    scored in full."""
+    _staged_parity(_sig(66000)[0], 16000,
+                   dict(search="coarse", objective=objective, s_clip=15.5))
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(c, marks=pytest.mark.slow) if c.startswith("60s") else c
+    for c in chip_smoke.STAGED
+])
+def test_staged_constants_of_chip_smoke(case):
+    """chip_smoke.py holds the staged single-shot encodes (10 s at tile 512
+    and tile 2048; 60 s, a bank over the 9 MB cap, marked slow) to the JAX
+    CPU kernel-path run's numbers; re-derive them
+    (scripts/derive_staged_constants.py prints them)."""
+    want = chip_smoke.STAGED[case]
+    sig = bench.make_signal(want["seconds"])
+    jcfg = JaxEncoderConfig(use_pallas=True, **want["kw"])
+    J = jax_encode(sig, 44100, 2, config=jcfg)
+    assert J[2] == want["n_ranges"]
+    assert int((J[0]["idx"] < 0).sum()) == want["sentinels"]
+    assert abs(_snr(sig, J, jax_decode, **want["decode"]) - want["snr_db"]) <= 5e-5
+    cfg = EncoderConfig.from_reference(dataclasses.asdict(jcfg))
+    _, _, _, lb, db = port_encode._prep_signal(sig, cfg)
+    assert port_encode._plan_search(cfg, lb // cfg.range_size, db)[2] == "staged"
 
 
 def test_means_cap_raises():
     """Banks over the refine's 9 MB means cap (~53 s at 44.1 kHz) take the
-    staged refine in the JAX package; the port raises."""
+    staged refine in the JAX package, and now in the port: nothing raises,
+    and the plan says which refine runs."""
     cfg = EncoderConfig()
     # the bank buckets on either side of the cap: 8 MiB and 10 MiB of means
-    assert port_encode._plan_search(cfg, 1 << 21, 2097152) == ("coarse", 128)
-    with pytest.raises(NotImplementedError, match="9 MB"):
-        port_encode._plan_search(cfg, 1 << 21, 2621440)
+    assert port_encode._plan_search(cfg, 1 << 21, 2097152) == ("coarse", 128, "window")
+    assert port_encode._plan_search(cfg, 1 << 21, 2621440) == ("coarse", 128, "staged")
+    assert port_encode._plan_search(cfg, 8192, 24576) == ("exact", 128, None)
+    with pytest.raises(ValueError, match="does not divide"):
+        port_encode._plan_search(EncoderConfig(search="coarse"), 1024, 1000)
 
 
 def test_multi_lobe_gate_matches_jax():
     """The port runs K3 then K2 exactly where the JAX package's multi-lobe
     kernel branch runs (its refine_blocks_ok gate at the bucketed bank),
-    and raises where that branch hands over to coarse_refine_search."""
+    and the staged refine where that branch hands over to
+    coarse_refine_search."""
     from fwav_tpu.ops.pallas_search import refine_blocks_ok as jax_gate
 
     from fwav_tpu_torch.models.encode import _pow2_divisor
 
+    seen = set()
     for tile, objective, mb, db in [(1024, "damped", 20480, 65536),
                                     (1024, "damped", 114688, 458752),
                                     (1024, "damped", 1 << 21, 2621440),
@@ -316,8 +427,29 @@ def test_multi_lobe_gate_matches_jax():
         rblk = _pow2_divisor(mb, cfg.range_block)
         ok = jax_gate(rblk, _pow2_divisor(rblk, 512), stride, cfg.domain_step, 4,
                       objective, db)
-        if ok:
-            assert port_encode._plan_search(cfg, mb, db) == ("coarse", stride)
-        else:
-            with pytest.raises(NotImplementedError, match="staged refine"):
-                port_encode._plan_search(cfg, mb, db)
+        refine = "window" if ok else "staged"
+        assert port_encode._plan_search(cfg, mb, db) == ("coarse", stride, refine)
+        seen.add(refine)
+    assert seen == {"window", "staged"}
+
+
+@pytest.mark.parametrize("tile,mb,db", [(1024, 20480, 65536), (1024, 20224, 65536),
+                                        (512, 20480, 65536), (256, 10240, 40960),
+                                        (2048, 20480, 65536), (1024, 1 << 21, 2621440)])
+def test_one_lobe_gate_matches_jax(tile, mb, db):
+    """One lobe takes K2 only where the JAX core's scan-kernel gate and its
+    refine gate both hold (its branch at coarse_topc == 1)."""
+    from fwav_tpu.ops.pallas_search import pallas_blocks_ok as jax_blocks
+    from fwav_tpu.ops.pallas_search import refine_blocks_ok as jax_gate
+
+    from fwav_tpu_torch.models.encode import _pow2_divisor
+
+    cfg = EncoderConfig(tile_size=tile, search="coarse")
+    stride = port_encode._resolve_search(cfg, cfg.range_size, db)[1]
+    rblk = _pow2_divisor(mb, cfg.range_block)
+    prb = 512 if rblk % 512 == 0 else _pow2_divisor(rblk, 512)
+    dc = db // stride
+    ok = (jax_blocks(rblk, dc, prb, _pow2_divisor(dc, cfg.domain_block))
+          and jax_gate(rblk, _pow2_divisor(rblk, 512), stride, cfg.domain_step, 1,
+                       cfg.objective, db))
+    assert port_encode._plan_search(cfg, mb, db)[2] == ("window" if ok else "staged")

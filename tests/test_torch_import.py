@@ -85,6 +85,10 @@ def test_cuda_request_without_a_card_raises(speechlike):
     rec, bank, n, rs, *_ = port.compress_audio_arrays(sig, sr, sw, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.decompress_audio(rec, bank, n, rs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.decompress_segment(rec, bank, n, rs, 0, 100)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.compress_audio_packed([sig], sr, sw)
     with pytest.raises(ValueError, match="unsupported device"):
         port.compress_audio_arrays(sig, sr, sw, device="meta")
 
@@ -120,7 +124,55 @@ def test_public_api_exports():
                  "save_compressed", "load_compressed", "read_wav_mono",
                  "write_wav", "compute_snr", "save_compressed_compact",
                  "load_compressed_compact", "parse_decode_hint",
-                 "compress_audio_streaming", "save_compressed_streaming"):
+                 "compress_audio_streaming", "save_compressed_streaming",
+                 "compress_audio_packed", "save_compressed_multi", "load_compressed_multi",
+                 "decompress_segment", "read_wav"):
         assert callable(getattr(port, name)), name
+        assert name in port.__all__, name
+    assert port.TOP_K == 32 and port.PACK_B_MAX == 16
+    assert port.decompress_audio([], None, 0, 4, mesh=None, device="cpu").size == 0
+    with pytest.raises(NotImplementedError, match="item 15"):
+        port.decompress_audio([], None, 0, 4, mesh=object(), device="cpu")
     assert port.MATCH_DTYPE.itemsize == 17 and np.dtype(port.MATCH_DTYPE).names[0] == "idx"
     assert port.DAMPED_DECODE_DAMPING == 0.25
+
+
+def test_exports_cover_the_jax_packages_ported_names():
+    """Every top-level name of the JAX package that this port has a
+    counterpart for is a top-level name here, and means the same."""
+    import inspect
+
+    import fwav_tpu
+
+    for name in ("read_wav", "TOP_K", "compress_audio_packed", "decompress_segment",
+                 "save_compressed_multi", "load_compressed_multi"):
+        assert name in fwav_tpu.__all__ and name in port.__all__, name
+    assert port.TOP_K == fwav_tpu.TOP_K
+    assert port.PACK_B_MAX == fwav_tpu.models.encode.PACK_B_MAX
+    jax_sig = inspect.signature(fwav_tpu.decompress_audio).parameters
+    port_sig = inspect.signature(port.decompress_audio).parameters
+    assert set(jax_sig) <= set(port_sig) and port_sig["mesh"].default is None
+    assert set(inspect.signature(fwav_tpu.compress_audio_packed).parameters) <= set(
+        inspect.signature(port.compress_audio_packed).parameters)
+    assert list(inspect.signature(fwav_tpu.decompress_segment).parameters) == list(
+        inspect.signature(port.decompress_segment).parameters)
+
+
+def test_read_wav_keeps_the_channels(tmp_path):
+    """read_wav, now a top-level name: the (n, channels) array that the
+    multichannel container's callers start from."""
+    import wave
+
+    rng = np.random.default_rng(0)
+    pcm = rng.integers(-2000, 2000, (800, 2)).astype("<i2")
+    with wave.open(str(tmp_path / "st.wav"), "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(8000)
+        w.writeframes(pcm.tobytes())
+    import fwav_tpu
+
+    got, want = port.read_wav(tmp_path / "st.wav"), fwav_tpu.read_wav(tmp_path / "st.wav")
+    assert got[1:] == want[1:]
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[0].shape == (800, 2)

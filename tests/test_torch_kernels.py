@@ -508,3 +508,96 @@ def test_near_tie_lists_bar(case, passes):
 
 def test_near_tie_allowance_rounds_up():
     assert [near_tie.allowed_diffs(n) for n in (1, 1024, 1025, 114688)] == [2, 2, 4, 224]
+
+
+# --- stacks of files: the plain versions take a leading file axis ----------
+
+
+def _stack_files(B, objective, M=96, D=300, N=4):
+    """B files' scan inputs as tensors, each with its own valid prefix."""
+    files = []
+    for b in range(B):
+        r_c, bank, w, valid, t, s_clip, *_ = _k1_inputs(50 + b, objective, M=M, D=D, N=N)
+        valid = np.arange(D) < D - 11 * (b + 1)
+        files.append((torch.from_numpy(r_c), torch.from_numpy(bank.T.copy()),
+                      torch.from_numpy(w), torch.from_numpy(valid),
+                      None if t is None else torch.from_numpy(t)))
+    stack = tuple(None if files[0][k] is None else torch.stack([f[k] for f in files])
+                  for k in range(5))
+    return files, stack, s_clip
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+@pytest.mark.parametrize("B", [1, 3, 16])
+def test_search_scan_ref_stack_is_a_loop_over_files(B, objective):
+    files, stack, c = _stack_files(B, objective)
+    score, idx = kernels.search_scan(*stack, c)  # the wrapper, on CPU tensors
+    assert score.shape == (B, 96) and idx.dtype == torch.int32
+    for b, f in enumerate(files):
+        s_b, i_b = kernels.search_scan_ref(*f, c)
+        assert torch.equal(score[b], s_b) and torch.equal(idx[b], i_b)
+    assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+@pytest.mark.parametrize("B", [1, 3, 16])
+def test_topc_scan_ref_stack_is_a_loop_over_files(B, objective):
+    files, stack, c = _stack_files(B, objective)
+    lists = kernels.topc_scan(*stack[:4], 4, stack[4], c)
+    assert lists.shape == (B, 96, 4)
+    for b, f in enumerate(files):
+        assert torch.equal(lists[b], kernels.topc_scan_ref(*f[:4], 4, f[4], c))
+
+
+def _k2_files(B, C, M=80, n=4, stride=32, block_len=64, dc=12):
+    rng = np.random.default_rng(B + C)
+    L = stride + dc * stride + n * block_len + 64
+    ext = (rng.standard_normal((B, L)) * 0.2).astype(np.float32)
+    ext[:, :stride] = 0.0
+    shape = (B, M) if C == 1 else (B, M, C)
+    lobes = rng.integers(-1, dc, shape).astype(np.int32)
+    ranges = rng.standard_normal((B, M, n)).astype(np.float32)
+    n_valid = [dc * stride - 11 * b for b in range(B)]
+    return (torch.from_numpy(ext), torch.from_numpy(lobes), torch.from_numpy(ranges),
+            n_valid, stride, block_len)
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("B,C", [(1, 1), (3, 4), (16, 1), (16, 2)])
+def test_refine_window_ref_stack_is_a_loop_over_files(B, C, objective):
+    """Per-file n_valid: the files of a stack share every size but it."""
+    ext, lobes, ranges, n_valid, stride, block_len = _k2_files(B, C)
+    score, idx = kernels.refine_window(ext, lobes, ranges, n_valid, stride, block_len,
+                                       objective, 2.0)
+    table = kernels.window_stats(ext, 4, block_len, objective)
+    assert score.shape == idx.shape == (B, 80) and table.shape == ext.shape
+    for b in range(B):
+        s_b, i_b = kernels.refine_window_ref(ext[b], lobes[b], ranges[b], n_valid[b], stride,
+                                             block_len, objective, 2.0)
+        assert torch.equal(score[b], s_b) and torch.equal(idx[b], i_b)
+        assert int(i_b.max()) <= n_valid[b] - 1
+        assert torch.equal(table[b], kernels.window_stats_ref(ext[b], 4, block_len, objective))
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_gain_topk_scan_is_the_jax_functions_counterpart(objective, C):
+    """ops/search.py gain_topk_scan, the JAX package's name and argument
+    order over K3's plain version, against the JAX function (C = 1 there is
+    the running-argmax scan), at K3's bar."""
+    from fwav_tpu_torch.ops.search import gain_topk_scan as port_topk
+
+    r_c, bank, w, valid, t, s_clip, *_ = _k1_inputs(7, objective)
+    got = port_topk(torch.from_numpy(r_c), torch.from_numpy(bank), torch.from_numpy(w),
+                    torch.from_numpy(valid), C, 256,
+                    d_thresh=None if t is None else torch.from_numpy(t), s_clip=s_clip)
+    assert got.shape == (1024, C) and got.dtype == torch.int32
+    want = gain_topk_scan(jnp.asarray(r_c), jnp.asarray(bank), jnp.asarray(w),
+                          jnp.asarray(valid), C, 256,
+                          d_thresh=None if t is None else jnp.asarray(t), s_clip=s_clip)
+
+    def gain(idx, rows):
+        return near_tie.topc_gain64(r_c[rows], bank.T, w, t, s_clip, idx)
+
+    # the JAX scan's DEFAULT matmul precision is full float32 on the CPU
+    _assert_same_lists(got.numpy(), np.asarray(want), gain)

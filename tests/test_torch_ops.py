@@ -164,3 +164,56 @@ def test_encoder_config_from_reference():
     assert (cfg.range_size, cfg.domain_step) == (ref.range_size, ref.domain_step)
     with pytest.raises(ValueError, match="unknown"):
         EncoderConfig.from_reference({**d, "not_a_field": 1})
+
+
+# --- stacks of files: the core's torch ops along the last axis --------------
+
+
+def _stack_signals(B, nb, seed=0):
+    """B signals of differing true lengths in one (B, nb) zero-padded
+    buffer, some with a silent gap."""
+    rng = np.random.default_rng(seed)
+    lens = [nb - 43 - 97 * b for b in range(B)]
+    buf = np.zeros((B, nb), np.float32)
+    for b, n in enumerate(lens):
+        t = np.arange(n) / 8000
+        x = 0.3 * np.sin(2 * np.pi * (200 + 30 * b) * t) + 0.01 * rng.standard_normal(n)
+        x[n // 3 : n // 3 + 200 * (b % 3)] = 0.0
+        buf[b, :n] = x
+    return buf, lens
+
+
+@pytest.mark.parametrize("B,frame", [(1, 8), (3, 8), (16, 8), (3, 12)])
+def test_voiced_mask_stack_equals_per_file(B, frame):
+    """Per-file frame validity, tail frame and cut (frame 12 does not
+    divide the buffer: the gathered-frames branch)."""
+    buf, lens = _stack_signals(B, 4096)
+    got = vad.voiced_mask(torch.from_numpy(buf), torch.tensor(lens), frame, 1e-4)
+    assert got.shape == (B, 4096) and got.dtype == torch.uint8
+    for b in range(B):
+        want = vad.voiced_mask(torch.from_numpy(buf[b]), lens[b], frame, 1e-4)
+        assert torch.equal(got[b], want)
+        np.testing.assert_array_equal(
+            want.numpy()[: lens[b]], vad.voiced_detection(buf[b, : lens[b]], frame, 1e-4))
+        assert 0 < int(want.sum()) and not want[lens[b]:].any()
+
+
+@pytest.mark.parametrize("B", [1, 3, 16])
+def test_bank_ops_stack_equals_per_file(B):
+    from fwav_tpu_torch.models.encode import _means_setup as means_setup
+
+    buf, lens = _stack_signals(B, 8192, seed=1)
+    x = torch.from_numpy(buf)
+    for width in (1, 7, 32):
+        sums = domains.box_sums(x, width)
+        for b in range(B):  # the tail wraps within the file's own row
+            assert torch.equal(sums[b], domains.box_sums(x[b], width))
+    n_dom = [domains.n_domains_for(n, 128, 1) for n in lens]
+    bank = domains.build_bank(x, 128, 4, 1, 8192, torch.tensor(n_dom))
+    ext, sub = means_setup(x, 4, 32, 16, 512)
+    assert bank.shape == (B, 8192, 4) and sub.shape == (B, 512, 4)
+    for b in range(B):
+        assert torch.equal(bank[b], domains.build_bank(x[b], 128, 4, 1, 8192, n_dom[b]))
+        ext_b, sub_b = means_setup(x[b], 4, 32, 16, 512)
+        assert torch.equal(ext[b], ext_b) and torch.equal(sub[b], sub_b)
+        assert not bank[b, n_dom[b]:].any()
