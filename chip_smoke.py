@@ -10,7 +10,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    spill fails the run;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the 10 s main paths (and K1 at the exact branch's largest
-   bank) and of the 100 s stream (K1, K3 and K2 at a shard's shapes, K3 at
+   bank) and of the 100 s stream (K1, K3 and K2 (all three objectives) at a
+   shard's shapes, K3 at
    the global pass's whole-file shape), held to the near-tie bar of
    fwav_tpu_torch/ops/near_tie.py (K2, with one lobe per range and with
    K3's four, and its per-position table to exact equality), with
@@ -55,12 +56,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 9. staged: the single-shot geometries whose coarse refine is the staged
    one (a 60 s file, over the window refine's 9 MB means cap; 10 s at tile
    512 and at tile 2048), balanced and damped: K2 is not launched, the
-   JAX package's sentinels and SNR, the host run's records, peak memory;
+   JAX package's sentinels and SNR, peak memory;
 10. multichannel and segment: a stereo pair through mid/side, both
    channels damped in one packed call, the v3 container with the decode
    hint, the hinted decode of both on the card and the inverse
    transform, against the same pipeline on the host; a segment of it by
-   decompress_segment against the slice of the full decode.
+   decompress_segment against the slice of the full decode;
+11. cli: fwav_tpu_torch.cli.main in this process on the same files: the
+   default compress of 10 s (the slice's file, byte for byte; info
+   --verify, a bare decompress and snr: the slice's SNR), --compact (the
+   damped phase's v2 file; the stored hint, 6 iterations), a segment
+   (the slice of the full decode), the 100 s file (the streaming branch,
+   default and --compact: the stream phase's SNRs), --batch --packed on
+   the packed phase's 17 files (one launch of each kernel per stack,
+   every entry "packed", each file as compress_audio_packed writes it),
+   --batch with 1 and 4 workers (the same bytes), --channels ms (the
+   multichannel phase's v3 file); each call's wall time, x-realtime and
+   peak memory;
+12. cli_process: `python -m fwav_tpu_torch warmup` and `compress` in
+   subprocesses (the in-process file, byte for byte);
+13. topk: `compress --search topk` of the 10 s file through the CLI:
+   no kernel launched, TOPK's sentinels and SNR (the JAX CLI's CPU run).
 
 Each slice runs with the launch counts set to 0 just before it and read
 just after; a kernel of the slice that was not launched fails the run.
@@ -136,6 +152,12 @@ STAGED = {
                         "decode": {"s_damping": 0.25},
                         "n_ranges": 55125, "sentinels": 4130, "snr_db": 12.0344},
 }
+# The topk compatibility mode's reference numbers: the JAX package's CLI on
+# the CPU, `compress bench10.wav OUT --search topk` then a bare
+# `decompress`, on 10 s of bench.make_signal (range count, sentinel count,
+# round-trip SNR). From scripts/derive_topk_constants.py;
+# tests/test_torch_topk.py re-derives them (marked slow).
+TOPK = {"seconds": 10.0, "n_ranges": 110250, "sentinels": 8265, "snr_db": 6.627}
 #: A segment decoded by the loop at its default stop test against the slice
 #: of the full decode, relative to the signal's peak: the stop test's delta
 #: is over the chunk that is decoded, so the two may stop an iteration apart.
@@ -546,6 +568,7 @@ def main() -> int:
         snr = port.compute_snr(signal, recon)
         sentinels = int((rec["idx"] < 0).sum())
         fwav_bytes = fwav.stat().st_size
+        api_files = {"default": fwav.read_bytes()}
     if min(launches[k] for k in ("search_scan", "refine_window", "window_stats")) < 1:
         raise AssertionError(f"the slice did not launch K1 and K2 with its table: {launches}")
     if n_ranges != SLICE_RANGES or sentinels != SLICE_SENTINELS:
@@ -583,12 +606,14 @@ def main() -> int:
           "x_realtime": len(signal) / sr / enc_s, "core_span_ms_median5": core_span_ms,
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
 
-    damped_launches = damped_slice(port, kernels, enc, dev, smi, signal, sr, sw)
+    damped_launches, api_files["compact"] = damped_slice(port, kernels, enc, dev, smi,
+                                                         signal, sr, sw)
     by_path = {"balanced": launches, "damped": damped_launches,
                **stream_phase(port, kernels, smi, stream_sig),
                **packed_phase(port, kernels, enc, smi),
-               **staged_phase(port, kernels, smi),
-               "multichannel": multichannel_phase(port, kernels, smi)}
+               **staged_phase(port, kernels, smi)}
+    by_path["multichannel"], api_files["ms"] = multichannel_phase(port, kernels, smi)
+    by_path.update(cli_phase(port, kernels, smi, sig, stream_sig, api_files))
 
     def summary(key, prefix, main_check, stack_check):
         """Launches of every path; times and bound at the main path's
@@ -633,7 +658,8 @@ def main() -> int:
 
 def damped_slice(port, kernels, enc, dev, smi, signal, sr, sw):
     """The damped profile's main path on the card, held to the JAX CPU
-    run's numbers and to the host run; returns its launch counts."""
+    run's numbers and to the host run; returns its launch counts and the
+    bytes of its v2 file."""
     import numpy as np
     import torch
 
@@ -657,6 +683,7 @@ def damped_slice(port, kernels, enc, dev, smi, signal, sr, sw):
         snr = port.compute_snr(signal, recon)
         sentinels = int((rec["idx"] < 0).sum())
         fwav_bytes = fwav.stat().st_size
+        data = fwav.read_bytes()
     if min(launches[k] for k in ("topc_scan", "refine_window", "window_stats")) < 1:
         raise AssertionError(f"the damped slice did not launch K3 and K2 with its table: {launches}")
     if n_ranges != SLICE_RANGES or sentinels != DAMPED_SENTINELS:
@@ -716,7 +743,7 @@ def damped_slice(port, kernels, enc, dev, smi, signal, sr, sw):
           "encode_s_median5": enc_s, "x_realtime": len(signal) / sr / enc_s,
           "core_span_ms_median5": core_span_ms, "decode_ms_median5": decode_ms,
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
-    return launches
+    return launches, data
 
 
 def stream_kernel_checks(kernels, enc, dev, sig, checks):
@@ -746,12 +773,14 @@ def stream_kernel_checks(kernels, enc, dev, sig, checks):
     rng = np.random.default_rng(5)
     lobes = torch.from_numpy(rng.integers(-1, D1 - 3, M1).astype(np.int32)).to(dev)
     ranges = torch.from_numpy(rng.standard_normal((M1, 4)).astype(np.float32) * 0.3).to(dev)
-    for objective in ("balanced", "damped"):
+    for objective in ("balanced", "affine", "damped"):
         k2 = (means_ext, lobes, ranges, n_valid, stride, block_len, objective, 16.0)
         checks[f"k2_shard_{objective}"] = k2_check(kernels, f"K2 shard {objective}", k2,
                                                    plain_reps=5)
         checks[f"ws_shard_{objective}"] = stats_check(
             kernels, f"K2 table shard {objective}", means_ext, 4, block_len, objective)
+        if objective == "affine":
+            continue  # four lobes run balanced and damped only (K3's objectives)
         lobes4 = k2_lobe_matrix(kernels, dev, 7, M1, D1, objective, n_valid, stride)
         k2 = (means_ext, lobes4, ranges, n_valid, stride, block_len, objective, 16.0)
         checks[f"k2_shard_lobes4_{objective}"] = k2_check(
@@ -1193,13 +1222,15 @@ def packed_phase(port, kernels, enc, smi):
 
 def staged_phase(port, kernels, smi):
     """The single-shot geometries that take the staged refine, on the card:
-    held to the JAX CPU run's numbers (STAGED) and to the host's plain run;
-    K2 must not launch. Returns the launch counts per case."""
+    held to the JAX CPU run's numbers (STAGED); K2 must not launch. The
+    host's plain run of these files is not repeated here (140-170 s for
+    the 60 s damped file alone): STAGED holds the results and
+    staged_kernel_checks the kernels against their plain versions at these
+    shapes. Returns the launch counts per case."""
     import numpy as np
     import torch
 
     from bench import make_signal
-    from fwav_tpu_torch.ops import near_tie
 
     out = {}
     for name, case in STAGED.items():
@@ -1231,22 +1262,22 @@ def staged_phase(port, kernels, smi):
         t0 = time.perf_counter()
         port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
         enc_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rec_cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu", **kw)[0]
-        host_s = time.perf_counter() - t0
-        if not np.array_equal(rec_cpu["idx"] < 0, rec["idx"] < 0):
-            raise AssertionError(f"staged {name}: the card's and the host's sentinel sets differ")
-        cpu_diff = int((rec_cpu["idx"] != rec["idx"]).sum())
-        if cpu_diff > near_tie.allowed_diffs(n_ranges):
-            raise AssertionError(f"staged {name}: {cpu_diff} idx differ between card and host")
         out[f"staged_{name}"] = launches
         emit({"phase": "staged", "case": name, "card": smi, "seconds_audio": case["seconds"],
               "config": kw, "n_ranges": n_ranges, "sentinels": sentinels, "snr_db": snr,
               "snr_db_jax_cpu": case["snr_db"], "launches": launches,
-              "idx_diff_vs_host": cpu_diff, "encode_s_first": first_s, "encode_s_second": enc_s,
-              "x_realtime": case["seconds"] / enc_s, "host_encode_s": host_s,
-              "peak_mem_mb": peak})
+              "encode_s_first": first_s, "encode_s_second": enc_s,
+              "x_realtime": case["seconds"] / enc_s, "peak_mem_mb": peak})
     return out
+
+
+def stereo_pair():
+    """Ten seconds of stereo: a packed_signals file left, 0.7 of it plus
+    0.3 of another right."""
+    import numpy as np
+
+    left, other = packed_signals(10.0, 2, seed0=300)
+    return np.stack([left, np.round(0.7 * left + 0.3 * other)], axis=1).astype(np.float32)
 
 
 def multichannel_phase(port, kernels, smi):
@@ -1254,14 +1285,13 @@ def multichannel_phase(port, kernels, smi):
     channels, the v3 container with the decode hint, the hinted decode on
     the card and the inverse transform, against the same pipeline on the
     host; then a segment against the slice of the full decode. Returns the
-    encode's launch counts."""
+    encode's launch counts and the card's v3 bytes."""
     import numpy as np
 
     from fwav_tpu_torch.io import multich
     from fwav_tpu_torch.ops import near_tie
 
-    left, other = packed_signals(10.0, 2, seed0=300)
-    stereo = np.stack([left, np.round(0.7 * left + 0.3 * other)], axis=1).astype(np.float32)
+    stereo = stereo_pair()
     ms = multich.ms_forward(stereo)
     chans = [np.ascontiguousarray(ms[:, c]) for c in range(2)]
 
@@ -1290,12 +1320,12 @@ def multichannel_phase(port, kernels, smi):
                for c, st in zip(loaded, stats)]
         recon = multich.ms_inverse(np.stack(dec, axis=1))
         snr = [port.compute_snr(stereo[:, c], recon[:, c]) for c in range(2)]
-        return enc_res, launches, loaded, hint, recon, snr, stats, len(data)
+        return enc_res, launches, loaded, hint, recon, snr, stats, len(data), data
 
     with tempfile.TemporaryDirectory() as tmp:
         gpu = pipeline("cuda", tmp)
         cpu = pipeline("cpu", tmp)
-    enc_res, launches, loaded, hint, recon, snr, stats, size = gpu
+    enc_res, launches, loaded, hint, recon, snr, stats, size, _ = gpu
     if launches != {"search_scan": 0, "topc_scan": 1, "refine_window": 1, "window_stats": 1}:
         raise AssertionError(f"multichannel: both channels are one stack, launches {launches}")
     if not np.isfinite(recon).all() or recon.shape != stereo.shape:
@@ -1345,8 +1375,226 @@ def multichannel_phase(port, kernels, smi):
                       "max_abs_err_on_the_loop": seg_err, "peak_abs": peak_abs,
                       "iterations_segment": seg_stats["iterations"],
                       "iterations_full": stats[0]["iterations"]}})
-    return launches
+    return launches, gpu[8]
 
+
+
+def cli_call(kernels, argv):
+    """fwav_tpu_torch.cli.main(argv) in this process with the launch
+    counts set to 0 just before: (its launches, host-clock seconds, what it
+    printed, the card's peak memory in MB)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from fwav_tpu_torch import cli
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit code {rc}")
+    return (dict(kernels.LAUNCHES), seconds, buf.getvalue(),
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
+def need(name, launches, want):
+    """Each kernel of `want` launched at least that often."""
+    short = {k: v for k, v in want.items() if launches[k] < v}
+    if short:
+        raise AssertionError(f"{name}: launches {launches}, expected at least {want}")
+
+
+def cli_phase(port, kernels, smi, sig, stream_sig, api_files):
+    """The CLI (fwav_tpu_torch.cli.main in this process, so that the launch
+    counts can be read around each call) on the main paths' files, held to
+    the in-process API's bytes and the JAX package's numbers; the module
+    entry point in subprocesses; and the topk mode held to TOPK. Returns the
+    launch counts of every call that runs a path."""
+    import numpy as np
+
+    from fwav_tpu_torch.io import multich
+
+    out, calls = {}, {}
+
+    def call(name, argv, seconds_audio=None):
+        launches, wall, printed, peak = cli_call(kernels, argv)
+        calls[name] = {"wall_s": wall, "launches": launches, "peak_mem_mb": peak}
+        if seconds_audio:
+            calls[name]["x_realtime"] = seconds_audio / wall
+        return launches, printed
+
+    def snr_of(wav, recon):
+        return json.loads(call(f"snr {Path(recon).name}", ["snr", wav, recon])[1])["snr_db"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        wav10 = d / "bench10.wav"
+        port.write_wav(wav10, sig, 44100, 2)
+        # 1-2. the default compress, its file, info --verify, a bare decompress
+        out["cli_default"] = call("compress", ["compress", wav10, d / "b.fwav"], 10.0)[0]
+        need("cli default", out["cli_default"],
+             {"search_scan": 1, "refine_window": 1, "window_stats": 1})
+        if (d / "b.fwav").read_bytes() != api_files["default"]:
+            raise AssertionError("cli default: the file differs from the API-written one")
+        rec = port.load_compressed_arrays(d / "b.fwav")[0]
+        sentinels = int((rec["idx"] < 0).sum())
+        if len(rec) != SLICE_RANGES or sentinels != SLICE_SENTINELS:
+            raise AssertionError(f"cli default: {sentinels} sentinels in {len(rec)} ranges")
+        info = json.loads(call("info --verify", ["info", d / "b.fwav", "--verify"])[1])
+        if info["checksum"] != "verified" or info["silent_sentinel_ranges"] != SLICE_SENTINELS:
+            raise AssertionError(f"cli info: {info}")
+        call("decompress", ["decompress", d / "b.fwav", "--out", d / "b_recon.wav"], 10.0)
+        snr = snr_of(wav10, d / "b_recon.wav")
+        if abs(snr - SLICE_SNR_DB) > SNR_TOL_DB:
+            raise AssertionError(f"cli default: SNR {snr} dB, expected {SLICE_SNR_DB}")
+        # 3. --compact: the damped profile, v2 with the hint, the hinted decode
+        launches = call("compress --compact", ["compress", wav10, d / "c.fwav", "--compact"],
+                        10.0)[0]
+        need("cli compact", launches, {"topc_scan": 1, "refine_window": 1, "window_stats": 1})
+        out["cli_compact"] = launches
+        if (d / "c.fwav").read_bytes() != api_files["compact"]:
+            raise AssertionError("cli compact: the file differs from the damped phase's v2")
+        if port.parse_decode_hint((d / "c.fwav").read_bytes()[:128]) != 0.25:
+            raise AssertionError("cli compact: the stored hint is not 0.25")
+        call("decompress (hint)", ["decompress", d / "c.fwav", "--out", d / "c_recon.wav"],
+             10.0)
+        snr_c = snr_of(wav10, d / "c_recon.wav")
+        if abs(snr_c - DAMPED_SNR_DB) > SNR_TOL_DB:
+            raise AssertionError(f"cli compact: SNR {snr_c} dB, expected {DAMPED_SNR_DB}")
+        from fwav_tpu_torch.models.codec import process_file_decompress
+
+        dec = process_file_decompress(str(d / "c.fwav"), str(d / "c2.wav"))
+        if dec.get("decode_iterations") != DAMPED_ITERATIONS or dec.get("s_damping") != 0.25:
+            raise AssertionError(f"cli compact: the hinted decode reported {dec}")
+        # 8. a segment equals the slice of the full decode
+        call("decompress --start 2 --duration 3",
+             ["decompress", d / "b.fwav", "--start", 2, "--duration", 3], 3.0)
+        seg = port.read_wav_mono(d / "b_recon_seg_2s+3s.wav")[0]
+        full = port.read_wav_mono(d / "b_recon.wav")[0]
+        if not np.array_equal(seg, full[2 * 44100 : 5 * 44100]):
+            raise AssertionError("cli segment: differs from the slice of the full decode")
+
+        # the module entry point in subprocesses
+        proc = {}
+        for name, argv in (("warmup", ["warmup", "--seconds", "10"]),
+                           ("compress", ["compress", wav10, d / "p.fwav"])):
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-m", "fwav_tpu_torch", *map(str, argv)],
+                           check=True, timeout=300, capture_output=True, text=True)
+            proc[name] = time.perf_counter() - t0
+        if (d / "p.fwav").read_bytes() != api_files["default"]:
+            raise AssertionError("cli process: the subprocess's file differs")
+        emit({"phase": "cli_process", "card": smi, "seconds": proc,
+              "file_equal_to_in_process": True})
+
+        # topk: the compatibility mode, no kernel, held to the JAX CLI's run
+        launches = call("compress --search topk", ["compress", wav10, d / "t.fwav", "--search",
+                                                   "topk"], 10.0)[0]
+        if any(launches.values()):
+            raise AssertionError(f"topk launched kernels: {launches}")
+        out["topk"] = launches
+        rec = port.load_compressed_arrays(d / "t.fwav")[0]
+        sentinels = int((rec["idx"] < 0).sum())
+        call("decompress (topk)", ["decompress", d / "t.fwav", "--out", d / "t_recon.wav"])
+        snr_t = snr_of(wav10, d / "t_recon.wav")
+        if len(rec) != TOPK["n_ranges"] or sentinels != TOPK["sentinels"] or abs(
+                snr_t - TOPK["snr_db"]) > SNR_TOL_DB:
+            raise AssertionError(f"topk: {sentinels} sentinels in {len(rec)}, {snr_t} dB; "
+                                 f"the JAX CLI's {TOPK}")
+        emit({"phase": "topk", "card": smi, "sentinels": sentinels, "snr_db": snr_t,
+              "snr_db_jax_cpu": TOPK["snr_db"], "launches": launches,
+              "encode_wall_s": calls["compress --search topk"]["wall_s"],
+              "x_realtime": calls["compress --search topk"]["x_realtime"]})
+
+        # 4. the 100 s file: the streaming branch and the prune from the signal
+        wav100 = d / "bench100.wav"
+        port.write_wav(wav100, stream_sig, 44100, 2)
+        seconds = len(stream_sig) / 44100
+        for name, flags, want, floor in (
+                ("cli_stream_balanced", [], STREAM_BALANCED_SNR_DB,
+                 {"search_scan": 5, "refine_window": 5, "window_stats": 5}),
+                ("cli_stream_damped", ["--compact"], STREAM_DAMPED_SNR_DB,
+                 {"topc_scan": 6, "refine_window": 5, "window_stats": 5})):
+            fwav = d / f"{name}.fwav"
+            launches = call(f"compress 100 s {flags}", ["compress", wav100, fwav, *flags],
+                            seconds)[0]
+            need(name, launches, floor)
+            out[name] = launches
+            call(f"decompress 100 s {flags}", ["decompress", fwav, "--out", d / f"{name}.wav"],
+                 seconds)
+            snr_s = snr_of(wav100, d / f"{name}.wav")
+            if abs(snr_s - want) > SNR_TOL_DB:
+                raise AssertionError(f"{name}: SNR {snr_s} dB, expected {want}")
+            calls[f"compress 100 s {flags}"]["snr_db"] = snr_s
+            if not flags:  # the v1 file: its read with and without the SHA-256 check
+                read_s = {}
+                for verify in (True, False, True, False):
+                    t0 = time.perf_counter()
+                    port.load_compressed_arrays(fwav, verify_checksum=verify)
+                    read_s.setdefault("checksum" if verify else "no_checksum", []).append(
+                        time.perf_counter() - t0)
+                calls[f"decompress 100 s {flags}"]["v1_read_s"] = read_s
+
+        # 5-6. --batch --packed and the thread pool on the packed phase's files
+        batch = d / "batch"
+        batch.mkdir()
+        sigs = packed_signals(10.0, PACK_FILES) + packed_signals(7.0, 1, seed0=99)
+        for i, sg in enumerate(sigs):
+            port.write_wav(batch / f"f{i:02d}.wav", sg, 44100, 2)
+        launches = call("compress --batch --packed", ["compress", batch, "--batch", "--packed",
+                                                      "--out", d / "packed"],
+                        10.0 * PACK_FILES + 7.0)[0]
+        want = {"search_scan": 2, "topc_scan": 0, "refine_window": 2, "window_stats": 2}
+        if launches != want:
+            raise AssertionError(f"cli packed: launches {launches}, one of each kernel per "
+                                 f"stack: {want}")
+        out["cli_packed"] = launches
+        metrics = json.loads((d / "packed" / "compression_metrics.json").read_text())
+        if len(metrics) != len(sigs) or not all(m.get("packed") is True for m in metrics):
+            raise AssertionError(f"cli packed: metrics {metrics}")
+        ref = port.compress_audio_packed(sigs, 44100, 2, device="cuda")
+        for i, res in enumerate(ref):
+            rec, bank, _, rs, tile, step, thr, olen = res
+            prec, pbank = port.prune_bank(rec, bank)
+            path = d / f"ref{i:02d}.fwav"
+            port.save_compressed(path, prec, pbank, rs, 44100, 2, tile, step, thr, olen)
+            if path.read_bytes() != (d / "packed" / f"f{i:02d}.wav.fwav").read_bytes():
+                raise AssertionError(f"cli packed: file {i} differs from compress_audio_packed")
+        for w in (1, 4):
+            out[f"cli_workers{w}"] = call(f"compress --batch --workers {w}",
+                                          ["compress", batch, "--batch", "--workers", w,
+                                           "--out", d / f"w{w}"], 10.0 * PACK_FILES + 7.0)[0]
+        for i in range(len(sigs)):
+            name = f"f{i:02d}.wav.fwav"
+            if (d / "w1" / name).read_bytes() != (d / "w4" / name).read_bytes():
+                raise AssertionError(f"cli workers: {name} differs between 1 and 4 workers")
+        if (d / "w1" / "f00.wav.fwav").read_bytes() != (d / "packed" / "f00.wav.fwav").read_bytes():
+            raise AssertionError("cli workers: a file differs from the packed batch's")
+
+        # 7. --channels ms on the multichannel phase's stereo pair
+        st = d / "stereo.wav"
+        port.write_wav(st, stereo_pair(), 44100, 2)
+        out["cli_ms"] = call("compress --channels ms", ["compress", st, d / "st.fwav",
+                                                       "--channels", "ms"], 10.0)[0]
+        need("cli ms", out["cli_ms"], {"topc_scan": 1, "refine_window": 1, "window_stats": 1})
+        data = (d / "st.fwav").read_bytes()
+        if data[4] != 3 or data != api_files["ms"]:
+            raise AssertionError("cli ms: the v3 file differs from the multichannel phase's")
+        if multich.multi_decode_hint(data) != 0.25:
+            raise AssertionError("cli ms: the stored hint is not 0.25")
+    emit({"phase": "cli", "card": smi, "sentinels": SLICE_SENTINELS, "snr_db": snr,
+          "snr_db_compact": snr_c, "compact_iterations": dec["decode_iterations"],
+          "files_equal_to_api": ["default", "compact", "ms", "packed", "subprocess"],
+          "calls": calls})
+    return out
 
 
 if __name__ == "__main__":

@@ -16,6 +16,9 @@ FWAV_VERSION = 1
 #: Candidate domains per range in the embedding-shortlist search path.
 TOP_K = 32
 
+#: DCT coefficients of the standalone tile embedding (ops/dct.py).
+EMBED_K = 32
+
 #: The decoder s_damping the damped encode profile is tuned for, stored as
 #: the v2 container's decode hint (FLAG_DECODE_HINT) so that a hint-aware
 #: decode realizes the profile's quality.
@@ -86,3 +89,13 @@ class DecoderConfig:
     convergence_eps: float = 1e-3
     s_clip: float = 16.0
     s_damping: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class VADConfig:
+    """Voiced/silent detection knobs; the encode's VAD runs with
+    frame_size = 2 * range_size."""
+
+    energy_threshold: float = 1e-4
+    smooth_window: int = 5
+    low_threshold: Optional[float] = None  # defaults to 0.5 * energy_threshold

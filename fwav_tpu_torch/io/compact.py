@@ -729,6 +729,51 @@ def compact_bytes(
     return header + sha.digest() + ext + hint + ext2 + payload
 
 
+def describe_layout(data: bytes):
+    """Header-level description of a v2 blob's payload layout (for `info`):
+    which encoding the keep-smallest writer picked and, for the entropy
+    layout, its quantization and coding choices. Never touches the payload,
+    so it is safe on corrupt files past the header. A dict, or None when the
+    blob is not a v2 container or too short to carry the ext header."""
+    if len(data) < _EXT_OFFSET + _EXT.size or data[:4] != MAGIC:
+        return None
+    if data[4] != COMPACT_VERSION:
+        return None
+    idx_bits, bank_exp, o_exp, flags, n_live, raw_len = _EXT.unpack(
+        data[_EXT_OFFSET : _EXT_OFFSET + _EXT.size]
+    )
+    out = {
+        "layout": (
+            "entropy" if flags & FLAG_ENTROPY
+            else "deflate" if flags & FLAG_DEFLATE else "raw"
+        ),
+        "idx_bits": int(idx_bits),
+        "n_live": int(n_live),
+        "bank_exp": int(bank_exp),
+        "o_exp": int(o_exp),
+    }
+    if flags & FLAG_DEFLATE:
+        out["idx_transform"] = "delta" if flags & FLAG_IDX_DELTA else "plain"
+    e2_off = _EXT_OFFSET + _EXT.size
+    if flags & FLAG_DECODE_HINT:
+        if len(data) > e2_off:
+            out["decode_damping_hint"] = data[e2_off] / 100.0
+        e2_off += 1
+    if flags & FLAG_ENTROPY and len(data) >= e2_off + _EXT2.size:
+        o_shift, s_drop, idx_enc, so_enc = _EXT2.unpack(
+            data[e2_off : e2_off + _EXT2.size]
+        )[:4]
+        out.update(
+            o_shift=int(o_shift), s_drop=int(s_drop),
+            idx_coding={0: "packed", 1: "rans", 2: "rank_split"}.get(
+                int(idx_enc), f"unknown({idx_enc})"
+            ),
+            s_coding="whole_value" if so_enc & 1 else "byte_planes",
+            o_coding="whole_value" if so_enc & 2 else "byte_planes",
+        )
+    return out
+
+
 def parse_decode_hint(data: bytes):
     """Return the stored FLAG_DECODE_HINT value (the writer's preferred
     decoder s_damping) of a v2 blob, or None when absent / not a v2 blob.

@@ -23,7 +23,8 @@ Layout (little-endian):
 
 The compact v2 layout is io/compact.py; load_compressed_arrays reads both.
 save_compressed_streaming writes the v1 bytes from a bank given in blocks.
-The multichannel v3 layout is not ported yet.
+The multichannel v3 layout is io/multich.py. read_version, read_header and
+read_matches read only what the CLI's `info` reports.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..config import FWAV_VERSION
 MAGIC = b"FWAV"
 _HEADER = struct.Struct("<IIBHHfIII")  # after magic+version
 _CHECKSUM_OFFSET = 34
+_PAYLOAD_OFFSET = 66
 _CHUNK = 1 << 22  # 4 MiB streaming granularity
 
 #: Packed match record: 17 bytes, matching struct '<iffBf'.
@@ -186,6 +188,55 @@ def save_compressed_streaming(
         except OSError:
             pass
         raise
+
+
+def read_version(filepath) -> int:
+    """Magic check and the version byte (1 = v1, 2 = compact, 3 =
+    multichannel)."""
+    with open(filepath, "rb") as f:
+        head = f.read(5)
+    if len(head) < 5 or head[:4] != MAGIC:
+        raise ValueError("Not a FWAV file")
+    return head[4]
+
+
+def read_header(filepath):
+    """Parse only the fixed 66-byte header (shared by v1 and v2). Returns
+    the 9-tuple (range_size, framerate, sampwidth, tile_size, domain_step,
+    energy_threshold, n_ranges, n_domains, original_len)."""
+    with open(filepath, "rb") as f:
+        head = f.read(5 + _HEADER.size)
+    if len(head) < 5 or head[:4] != MAGIC:
+        raise ValueError("Not a FWAV file")
+    if head[4] not in (FWAV_VERSION, 2):
+        raise ValueError(f"Unsupported FWAV version: {head[4]}")
+    if len(head) < 5 + _HEADER.size:
+        raise ValueError("Truncated FWAV payload")
+    return _HEADER.unpack(head[5:])
+
+
+def read_matches(filepath) -> np.ndarray:
+    """Read only the match record table, seeking past a v1 bank. A v2 bank
+    is bounded by the range count, so there the full loader is no dearer."""
+    version = read_version(filepath)
+    if version == 3:
+        raise ValueError(
+            "Multichannel FWAV container — load via "
+            "io.multich.load_compressed_multi (CLI decompress handles it)"
+        )
+    if version == 2:
+        from .compact import load_compressed_compact
+
+        return load_compressed_compact(filepath, verify_checksum=False)[0]
+    (range_size, _fr, _sw, _tile, _step, _thr, n_ranges, n_domains, _olen) = (
+        read_header(filepath)
+    )
+    with open(filepath, "rb") as f:
+        f.seek(_PAYLOAD_OFFSET + n_domains * range_size * 4)
+        buf = f.read(n_ranges * MATCH_DTYPE.itemsize)
+    if len(buf) != n_ranges * MATCH_DTYPE.itemsize:
+        raise ValueError("Truncated FWAV payload")
+    return np.frombuffer(buf, dtype=MATCH_DTYPE)
 
 
 def load_compressed_arrays(filepath, verify_checksum: bool = True):

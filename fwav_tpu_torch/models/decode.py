@@ -18,6 +18,7 @@ import torch
 from ..io.container import matches_to_struct
 from ..ops.affine import row_mean, row_sum
 from ..utils.device import resolve_device
+from .encode import DEVICE_LOCK
 
 _DENOM_EPS = 1e-12
 
@@ -222,26 +223,27 @@ def _decode_loop_chunks(rec, domains, n_ranges, range_size, iterations, eps,
     becomes one zero row. The JAX package pads each chunk to a shape
     bucket for its compile cache; eager torch compiles nothing per shape,
     and padded rows would add only zeros to every sum, so there is none
-    here. The report is the worst chunk's."""
-    n_dom = len(domains)
-    bank_np = domains if n_dom else np.zeros((1, range_size), np.float32)
-    bank = torch.from_numpy(bank_np).to(dev)
-    out = np.empty(n_ranges * range_size, np.float32)
-    its_max, delta_max = 0, 0.0
-    for a in range(0, n_ranges, DECODE_SHARD_RANGES):
-        b = min(n_ranges, a + DECODE_SHARD_RANGES)
-        r = rec[a:b]
-        idx = np.minimum(r["idx"].astype(np.int64), max(n_dom - 1, 0))
-        recon, it, delta = decode_loop(
-            torch.from_numpy(idx).to(dev),
-            torch.from_numpy(np.ascontiguousarray(r["s"])).to(dev),
-            torch.from_numpy(np.ascontiguousarray(r["o"])).to(dev),
-            torch.from_numpy(r["sym"] != 0).to(dev),
-            bank, iterations, eps, s_clip, s_damping,
-        )
-        out[a * range_size : b * range_size] = recon.cpu().numpy().reshape(-1)
-        its_max = max(its_max, it)
-        delta_max = max(delta_max, delta)
+    here. The report is the worst chunk's. The loop holds DEVICE_LOCK."""
+    with DEVICE_LOCK:
+        n_dom = len(domains)
+        bank_np = domains if n_dom else np.zeros((1, range_size), np.float32)
+        bank = torch.from_numpy(bank_np).to(dev)
+        out = np.empty(n_ranges * range_size, np.float32)
+        its_max, delta_max = 0, 0.0
+        for a in range(0, n_ranges, DECODE_SHARD_RANGES):
+            b = min(n_ranges, a + DECODE_SHARD_RANGES)
+            r = rec[a:b]
+            idx = np.minimum(r["idx"].astype(np.int64), max(n_dom - 1, 0))
+            recon, it, delta = decode_loop(
+                torch.from_numpy(idx).to(dev),
+                torch.from_numpy(np.ascontiguousarray(r["s"])).to(dev),
+                torch.from_numpy(np.ascontiguousarray(r["o"])).to(dev),
+                torch.from_numpy(r["sym"] != 0).to(dev),
+                bank, iterations, eps, s_clip, s_damping,
+            )
+            out[a * range_size : b * range_size] = recon.cpu().numpy().reshape(-1)
+            its_max = max(its_max, it)
+            delta_max = max(delta_max, delta)
     _report_convergence(stats, its_max, delta_max, eps)
     return out
 

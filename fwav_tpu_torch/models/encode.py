@@ -20,7 +20,10 @@ tile 2048; a bank over the 9 MB means cap: files over ~53 s), so does the
 port, by the same gates (`_plan_search`): K1 or K3 scans the subsampled
 rows of the full device bank and the staged window refine of
 ops/search.py (torch ops; it has no kernel in the JAX package either)
-refines around the lobes.
+refines around the lobes. "topk", the reference-shaped compatibility
+mode that "auto" never picks, is the JAX package's embedding shortlist
+(ops/search.py topk_search_block): torch ops, no kernel, as it has no
+Pallas kernel there either.
 
 Every device program here is written over a stack of files, (B, ...)
 tensors with one count per file; `encode_core` is the B = 1 case of
@@ -39,6 +42,8 @@ ops/search.py).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -53,10 +58,24 @@ from ..ops.kernels import (
     search_scan,
     topc_scan,
 )
-from ..ops.search import _window_gains, domain_thresh, domain_weights, refine_from_lobes
+from ..ops.dct import multi_head_embedding_batch
+from ..ops.search import (
+    _window_gains,
+    domain_thresh,
+    domain_weights,
+    refine_from_lobes,
+    topk_search_block,
+)
 from ..ops.vad import voiced_detection, voiced_mask
 from ..utils.buckets import bucket
 from ..utils.device import resolve_device
+
+#: One card, one queue: the device programs of concurrent callers (the
+#: CLI's batch threads) run one at a time under this lock, as in the JAX
+#: package; host work (WAV I/O, bank builds, refits, containers) stays
+#: outside it. It also keeps the kernel wrappers' launch counters
+#: (ops/kernels.py LAUNCHES) exact under threads.
+DEVICE_LOCK = threading.Lock()
 
 #: The 3-byte little-endian idx code of a dead range (sentinel).
 IDX3_SENTINEL = 0xFFFFFF
@@ -161,7 +180,8 @@ def _coarse_topc(cfg: EncoderConfig) -> int:
 
 def _plan_search(cfg: EncoderConfig, mb: int, db: int):
     """(search mode, coarse stride, refine) for mb bucketed ranges and a
-    db-row bucketed bank. `refine` is None for "exact"; for "coarse" it is
+    db-row bucketed bank. `refine` is None for "exact" and "topk"; for
+    "coarse" it is
     "window" where the JAX kernel path runs its window-refine kernel (K2
     here) and "staged" where it runs the staged refine over the full bank
     instead: its gates, mirrored, so that both packages take the same
@@ -173,12 +193,8 @@ def _plan_search(cfg: EncoderConfig, mb: int, db: int):
     if cfg.objective not in ("balanced", "affine", "damped"):
         raise ValueError(f"unknown objective {cfg.objective!r}")
     search_mode, stride = _resolve_search(cfg, n, db)
-    if search_mode == "exact":
+    if search_mode in ("exact", "topk"):
         return search_mode, stride, None
-    if search_mode == "topk":
-        raise NotImplementedError(
-            'search="topk" is not ported yet (ROADMAP.md: topk compatibility mode)'
-        )
     if search_mode != "coarse":
         raise ValueError(f"unknown search mode {cfg.search!r}")
     if db % stride:
@@ -228,6 +244,30 @@ def _staged_refine(ranges, bank, n_domains: int, lobes, stride: int, cfg: Encode
     return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
 
 
+def _topk_search(ranges, bank, valid, cfg: EncoderConfig):
+    """The topk compatibility mode of one file (the JAX core's "topk"
+    branch): ranges (M, n), its device bank (db, n) and valid rows (db,).
+    The bank's embeddings once, then per range block of the JAX lax.map's
+    size the embedding shortlist of cfg.top_k rows and the affine solve
+    over it (ops/search.py topk_search_block). Returns (idx, score), each
+    (M,): the score is the negated selection score, -inf where the
+    shortlist held no valid row."""
+    half = cfg.emb_dim // 2
+    bank_emb = multi_head_embedding_batch(bank, tonal_k=half, transient_k=half)
+    mb, db = ranges.shape[0], bank.shape[0]
+    rblk = _pow2_divisor(mb, cfg.range_block)
+    dblk = _pow2_divisor(db, cfg.domain_block)
+    idx, score = [], []
+    for r0 in range(0, mb, rblk):
+        i, _s, _o, _y, _e, sel, _pick = topk_search_block(
+            ranges[r0 : r0 + rblk], bank, bank_emb, valid, cfg.top_k, dblk, cfg.s_clip,
+            cfg.emb_dim, objective=cfg.objective, return_score=True,
+        )
+        idx.append(i)
+        score.append(torch.where(torch.isfinite(sel), -sel, float("-inf")))
+    return torch.cat(idx), torch.cat(score)
+
+
 def _run_search(ranges, raw_norm, n_domains, nd, db: int, cfg: EncoderConfig,
                 search_mode: str, stride: int, refine):
     """(idx, score), each (B, M), of a stack: ranges (B, M, n), raw_norm
@@ -235,10 +275,17 @@ def _run_search(ranges, raw_norm, n_domains, nd, db: int, cfg: EncoderConfig,
     K1 over the whole bank ("exact"),
     or K1 (one lobe) or K3 (several) over the subsampled bank, then around
     every lobe K2 once (refine "window") or the staged refine over the full
-    bank, file by file ("staged"). Each kernel is one launch per stack."""
+    bank, file by file ("staged"). Each kernel is one launch per stack.
+    "topk" launches none of them: torch ops, file by file."""
     n = cfg.range_size
     dev = ranges.device
     nd = nd[:, None]
+    if search_mode == "topk":
+        bank = build_bank(raw_norm, cfg.tile_size, n, cfg.domain_step, db, nd[:, 0])
+        valid = torch.arange(db, device=dev)[None, :] < nd
+        per_file = [_topk_search(ranges[b], bank[b], valid[b], cfg)
+                    for b in range(ranges.shape[0])]
+        return torch.stack([f[0] for f in per_file]), torch.stack([f[1] for f in per_file])
     r_c = ranges - row_mean(ranges)[..., None]
     if search_mode == "exact":
         bank = build_bank(raw_norm, cfg.tile_size, n, cfg.domain_step, db, nd[:, 0])
@@ -501,16 +548,19 @@ def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, device: torch.dev
     n_domains) of _prep_signal: the device core, the idx-only transfer, the
     host refit. The host banks are built while the device runs (kernel
     launches return at once); the one copy of the stack's codes waits for
-    the device. Returns one result per file."""
+    the device. The enqueue and the copy each hold DEVICE_LOCK. Returns one
+    result per file."""
     plan = _plan_search(cfg, lb // cfg.range_size, db)
-    raw = torch.from_numpy(np.stack([f[1] for f in files])).to(device)
-    codes = encode_core_packed(
-        raw, [len(f[0]) for f in files], [f[2] for f in files], [f[3] for f in files],
-        lb, db, cfg, *plan,
-    )
+    with DEVICE_LOCK:
+        raw = torch.from_numpy(np.stack([f[1] for f in files])).to(device)
+        codes = encode_core_packed(
+            raw, [len(f[0]) for f in files], [f[2] for f in files], [f[3] for f in files],
+            lb, db, cfg, *plan,
+        )
     banks = [build_domains_host(f[0], cfg.tile_size, cfg.range_size, cfg.domain_step)
              for f in files]
-    c = codes.cpu().numpy()
+    with DEVICE_LOCK:
+        c = codes.cpu().numpy()
     out = []
     for j, (signal, _, n_ranges, n_domains) in enumerate(files):
         assert len(banks[j]) == n_domains

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import logging
 import os
 import time
 
@@ -45,8 +44,10 @@ from ..ops.domains import bank_rows_host, n_domains_for
 from ..ops.vad import voiced_detection
 from ..utils.buckets import bucket
 from ..utils.device import resolve_device
+from ..utils.logging import logger
 from . import encode
 from .encode import (
+    DEVICE_LOCK,
     _as_i16_or_f32,
     _empty_result,
     _plan_search,
@@ -57,7 +58,6 @@ from .encode import (
     unpack3_np,
 )
 
-logger = logging.getLogger(__name__)
 
 #: Encode shard length in samples (~24 s at 44.1 kHz).
 DEFAULT_SHARD = 1 << 20
@@ -171,16 +171,18 @@ def _global_pass(rec, signal, weighted, raw_src, voiced_p, cfg, original_len,
 
     times = {"stride": stride, "db": db, "mb": lb // n}
     timer = _Timer(dev, times)
-    args = [torch.from_numpy(x).to(dev) for x in (raw_p, mask_bytes, lrows)]
-    timer.lap("h2d_ms")
-    timer.record(0)
-    with torch.profiler.record_function("stream.global_pass"):
-        out = encode_core_global(args[0], args[1], (L, 0, m, d_total), args[2], lb, db,
-                                 cfg, stride, cfg.global_topc)
-    timer.record(1)
-    timer.lap("enqueue_ms")
-    out = out.cpu().numpy()[:m]
-    timer.lap("wait_ms")
+    with DEVICE_LOCK:
+        args = [torch.from_numpy(x).to(dev) for x in (raw_p, mask_bytes, lrows)]
+        timer.lap("h2d_ms")
+        timer.record(0)
+        with torch.profiler.record_function("stream.global_pass"):
+            out = encode_core_global(args[0], args[1], (L, 0, m, d_total), args[2], lb,
+                                     db, cfg, stride, cfg.global_topc)
+        timer.record(1)
+        timer.lap("enqueue_ms")
+    with DEVICE_LOCK:
+        out = out.cpu().numpy()[:m]
+        timer.lap("wait_ms")
     timer.span()
     winners = unpack3_np(out) if packed else out
 
@@ -340,17 +342,19 @@ def compress_audio_streaming(
         times = {"shard": k}
         raw_p, mask_bytes = _window_inputs(raw_src, voiced_p, g0, g0 + lenw, nbw)
         timer = _Timer(dev, times)
-        raw = torch.from_numpy(raw_p).to(dev)
-        mask = torch.from_numpy(mask_bytes).to(dev)
-        timer.lap("h2d_ms")
-        timer.record(0)
-        with torch.profiler.record_function("stream.shard"):
-            codes = encode_core_masked(raw, mask, (lenw, off, m, n_dom_w), lb, db, cfg,
-                                       *plan)
-        timer.record(1)
-        timer.lap("enqueue_ms")
-        b3 = codes.cpu().numpy()[:m]
-        timer.lap("wait_ms")
+        with DEVICE_LOCK:
+            raw = torch.from_numpy(raw_p).to(dev)
+            mask = torch.from_numpy(mask_bytes).to(dev)
+            timer.lap("h2d_ms")
+            timer.record(0)
+            with torch.profiler.record_function("stream.shard"):
+                codes = encode_core_masked(raw, mask, (lenw, off, m, n_dom_w), lb, db,
+                                           cfg, *plan)
+            timer.record(1)
+            timer.lap("enqueue_ms")
+        with DEVICE_LOCK:
+            b3 = codes.cpu().numpy()[:m]
+            timer.lap("wait_ms")
         timer.span()
         slots[k] = rec = _refit_shard(b3, signal, weighted[a:b].reshape(m, n), g0 // step, cfg)
         if resume_dir:

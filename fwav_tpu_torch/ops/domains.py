@@ -5,7 +5,9 @@ signal, block-averaged down to range_size samples: bank[i, j] is the mean
 of block_len = tile_size // range_size samples starting at
 i*domain_step + j*block_len.
 
-`n_domains_for`, `build_domains_host` and `bank_rows_host` are copied from
+`n_domains_for`, `build_domains_host`, `bank_rows_host`,
+`build_domains_np` (the reference's formulation, for tests),
+`frame_ranges` and `apply_symmetry` are copied from
 fwav_tpu/ops/domains.py (numpy, host side: the serialized bank).
 `box_sums` and `build_bank` are the torch counterparts of its `box_sums`
 and `build_bank_jax` (the device's bank, used by the exact search).
@@ -135,3 +137,39 @@ def bank_rows_host(signal, tile_size: int, range_size: int, domain_step: int,
             out=out[:, j], casting="unsafe",
         )
     return out
+
+
+def build_domains_np(
+    signal: np.ndarray, tile_size: int, range_size: int, domain_step: int = 1
+) -> np.ndarray:
+    """The reference's formulation of the bank (sliding windows, trim,
+    reshape, mean), for tests and as a host fallback."""
+    signal = np.asarray(signal, dtype=np.float32)
+    if len(signal) < tile_size:
+        return np.zeros((0, range_size), dtype=np.float32)
+    windows = np.lib.stride_tricks.sliding_window_view(signal, tile_size)[::domain_step]
+    block_len = tile_size // range_size
+    usable = block_len * range_size
+    trimmed = windows[:, :usable]
+    return trimmed.reshape(len(windows), range_size, block_len).mean(
+        axis=2, dtype=np.float32
+    )
+
+
+def frame_ranges(signal, range_size: int, hop=None) -> np.ndarray:
+    """Strided frame view of the signal (the reference's public helper)."""
+    hop = hop or range_size
+    signal = np.asarray(signal)
+    total = signal.shape[0]
+    if total < range_size:
+        return np.empty((0, range_size), dtype=signal.dtype)
+    num_frames = 1 + (total - range_size) // hop
+    shape = (num_frames, range_size)
+    strides = (signal.strides[0] * hop, signal.strides[0])
+    return np.lib.stride_tricks.as_strided(signal, shape=shape, strides=strides)
+
+
+def apply_symmetry(tile):
+    """[tile, mirrored tile]."""
+    tile = np.asarray(tile)
+    return [tile, tile[::-1]]

@@ -1,17 +1,28 @@
-"""Per-domain selection weights, the selection gain and the staged window
-refine: the torch counterparts of fwav_tpu/ops/search.py's
-`domain_weights`, `domain_thresh`, `_gain_from_num`, `_window_gains`,
-`refine_from_lobes` (its non-sharded form) and, by name, `gain_topk_scan`.
-The scans themselves are the kernels in ops/kernels.py; the staged refine
-has no kernel behind it in the JAX package either (jnp gathers), so torch
-ops are its port."""
+"""Per-domain selection weights, the selection gain, the staged window
+refine and the embedding shortlist: the torch counterparts of
+fwav_tpu/ops/search.py's `domain_weights`, `domain_thresh`,
+`_gain_from_num`, `_window_gains`, `refine_from_lobes` (its non-sharded
+form), `exact_search_block`, the topk search (`_topk_merge_scan`,
+`topk_scores_block`, `topk_search_block`), the reference-shaped candidate
+helpers and, by name, `gain_topk_scan`. The scans themselves are the
+kernels in ops/kernels.py; the staged refine and the topk search have no
+kernel behind them in the JAX package either (jnp ops), so torch ops are
+their port.
+
+The topk merge keeps the JAX order exactly: a shortlist is the top k by
+(score descending, domain index ascending), which is what lax.top_k's
+stable ties and the carried-entries-first merge give. torch.topk promises
+no order among ties, so `_stable_topk` takes a stable sort instead.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .affine import row_mean, row_sum
-from .kernels import topc_scan_ref
+from .affine import batched_affine_match, row_mean, row_sum
+from .dct import ieee_fp32_matmul, multi_head_embedding_batch
+from .kernels import search_scan, topc_scan_ref
 
 _EPS = 1e-12
 _NEG = float("-inf")
@@ -156,3 +167,146 @@ def refine_from_lobes(ranges, bank, n_valid: int, coarse, stride: int,
     score, _ = _window_gains(r_c, bank, cand, valid, objective, s_clip)
     pick = score.argmax(0)                                       # first max
     return cand[pick, cols].to(torch.int32), score[pick, cols]
+
+
+def exact_search_block(ranges, bank, d_mean, d_denom, d_valid, domain_block: int,
+                       s_clip: float, objective: str = "balanced",
+                       return_score: bool = False):
+    """The best (domain, orientation) of every range of the block against
+    the whole bank: K1 (ops/kernels.py search_scan, its plain version on
+    the CPU) picks the domain, then the winner is refit on its tile.
+    Returns (idx, s, o, sym, err), each (M,), err +inf where no domain is
+    valid; with return_score the scan's score follows. K1 reports no
+    orientation, so the winner's is taken again from its two gains (the
+    mirror only where it scores strictly more). `domain_block` is accepted
+    for the JAX package's signature: the kernel picks its own blocks."""
+    del domain_block
+    n = ranges.shape[1]
+    r_mean = row_mean(ranges)
+    r_c = ranges - r_mean[:, None]
+    score, idx = search_scan(
+        r_c, bank.T.contiguous(), domain_weights(d_mean, d_denom, n, objective),
+        d_valid, domain_thresh(d_denom, objective, s_clip), s_clip,
+    )
+    rows = idx.to(torch.int64)
+    _, use_m = _window_gains(r_c.T, bank, rows[None, :],
+                             torch.ones_like(d_valid[rows])[None, :], objective, s_clip)
+    sym = use_m[0]
+    tile = bank[rows]
+    tile = torch.where(sym[:, None], tile.flip(-1), tile)
+    t_mean = row_mean(tile)
+    t_c = tile - t_mean[:, None]
+    t_denom = row_sum(t_c * t_c)
+    s = row_sum(r_c * t_c) / (t_denom + _EPS)
+    o = r_mean - s * t_mean
+    resid = r_c - s[:, None] * t_c
+    err = torch.sqrt(row_sum(resid * resid))
+    err = torch.where(torch.isfinite(score), err, float("inf"))
+    out = (idx, s.clamp(-abs(s_clip), abs(s_clip)), o, sym.to(torch.uint8), err)
+    return (*out, score) if return_score else out
+
+
+def _stable_topk(score, k: int):
+    """The k best entries of each row of score (M, W) by (score
+    descending, position ascending), in that order, as lax.top_k returns
+    them: a stable descending sort of the row, cut to k. Returns (scores
+    (M, k), positions (M, k) int64)."""
+    vals, pos = torch.sort(score, dim=1, descending=True, stable=True)
+    return vals[:, :k], pos[:, :k]
+
+
+def _topk_merge_scan(score_fn, xs_blocks, M: int, k: int, domain_block: int, n_blocks: int):
+    """Blockwise running best-k over domain blocks: score_fn(*block inputs)
+    gives an (M, domain_block) score block, -inf at invalid slots. Both of
+    the JAX package's merges (k rounds of max-extraction for k <= 8, concat
+    and lax.top_k above; carried entries first) keep the top k by (score
+    descending, domain index ascending). So does this one: each block's
+    stable top k (`_stable_topk`; the whole block when it is narrower than
+    k), then a stable sort of the carried k followed by the block's, whose
+    indices are all higher. Returns
+    (scores (M, k) descending, idx (M, k) int32, -1 where no finite score
+    survived)."""
+    dev = xs_blocks[0].device
+    best_s = torch.full((M, k), _NEG, dtype=torch.float32, device=dev)
+    best_i = torch.full((M, k), -1, dtype=torch.int32, device=dev)
+    for b in range(n_blocks):
+        score = score_fn(*(x[b] for x in xs_blocks))
+        blk_s, blk_pos = _stable_topk(score, k)
+        merged_s = torch.cat([best_s, blk_s], dim=1)
+        merged_i = torch.cat([best_i, (blk_pos + b * domain_block).to(torch.int32)], dim=1)
+        best_s, order = torch.sort(merged_s, dim=1, descending=True, stable=True)
+        best_s, best_i = best_s[:, :k], merged_i.gather(1, order[:, :k])
+    return best_s, torch.where(torch.isfinite(best_s), best_i, -1)
+
+
+def topk_scores_block(q, bank_emb, d_valid, top_k: int, domain_block: int):
+    """Blockwise exact top-k by inner product of the query embeddings q
+    (M, E) against bank_emb (D, E), d_valid (D,) bool: the on-device
+    replacement of the reference's ANN index. The products are float32
+    without TF32. Returns (scores (M, k) descending, idx (M, k) int32, -1
+    for an empty slot)."""
+    M, E = q.shape
+    D = bank_emb.shape[0]
+    assert D % domain_block == 0
+    n_blocks = D // domain_block
+    emb_blocks = bank_emb.reshape(n_blocks, domain_block, E)
+    valid_blocks = d_valid.reshape(n_blocks, domain_block)
+
+    def score_block(emb_blk, valid_blk):
+        with ieee_fp32_matmul():
+            scores = q @ emb_blk.T
+        return scores.masked_fill(~valid_blk[None, :], _NEG)
+
+    return _topk_merge_scan(score_block, (emb_blocks, valid_blocks), M, top_k,
+                            domain_block, n_blocks)
+
+
+def topk_search_block(ranges, bank, bank_emb, d_valid, top_k: int, domain_block: int,
+                      s_clip: float, emb_dim: int = 16, objective: str = "affine",
+                      return_score: bool = False):
+    """The reference-shaped two-stage search of one block of ranges: the
+    ranges' own embeddings, the blockwise top-k shortlist of the bank's,
+    then the mirrored affine solve over the shortlist
+    (ops/affine.py batched_affine_match; return_score appends the winner's
+    selection score and its position)."""
+    q = multi_head_embedding_batch(ranges, tonal_k=emb_dim // 2, transient_k=emb_dim // 2)
+    _, cand = topk_scores_block(q, bank_emb, d_valid, top_k, domain_block)
+    return batched_affine_match(ranges, cand, bank, s_clip=s_clip, objective=objective,
+                                return_score=return_score)
+
+
+def range_candidates_from_embedding(range_block, domain_embs, emb_dim: int = 16,
+                                    top_k: int = 32, device="cuda"):
+    """Reference-shaped candidate selection that embeds the raw range
+    first, on `device` (numpy in, numpy out)."""
+    from .dct import multi_head_embedding
+
+    q = multi_head_embedding(
+        range_block, tonal_k=emb_dim // 2, transient_k=emb_dim - emb_dim // 2,
+        device=device,
+    )
+    return range_candidates_from_embedding_emb(q, domain_embs, top_k=top_k)
+
+
+def range_candidates_from_embedding_emb(q, domain_embs, top_k: int = 64):
+    """Dense top-k by inner product for one query, in descending score
+    order (numpy, host side; copied from the JAX package)."""
+    q = np.asarray(q, dtype=np.float32)
+    domain_embs = np.asarray(domain_embs, dtype=np.float32)
+    scores = domain_embs @ q
+    if top_k >= len(scores):
+        return np.argsort(scores)[::-1].astype(np.int32)
+    idxs = np.argpartition(scores, -top_k)[-top_k:]
+    return idxs[np.argsort(scores[idxs])[::-1]].astype(np.int32)
+
+
+def pad_candidates(idxs, top_k: int):
+    """Pad or truncate a candidate list to top_k, -1 filling (copied)."""
+    if idxs is None or len(idxs) == 0:
+        return np.full(top_k, -1, dtype=np.int32)
+    idxs = np.asarray(idxs, dtype=np.int32)
+    if len(idxs) >= top_k:
+        return idxs[:top_k]
+    out = np.full(top_k, -1, dtype=np.int32)
+    out[: len(idxs)] = idxs
+    return out

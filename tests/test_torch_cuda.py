@@ -494,3 +494,94 @@ def test_packed_encode_on_the_card_equals_the_single_encodes(dev, kw, refine):
         np.testing.assert_array_equal(got[0].view(np.uint8), one[0].view(np.uint8))
         np.testing.assert_array_equal(got[1], one[1])
         assert tuple(got[2:]) == tuple(one[2:])
+
+
+def _wav(tmp_path, seconds, sr=44100):
+    path = tmp_path / "in.wav"
+    port.write_wav(path, bench.make_signal(seconds, sr), sr, 2)
+    return path
+
+
+@pytest.mark.parametrize("flags", [[], ["--compact"]])
+def test_cli_round_trip_on_the_card_equals_the_host(dev, tmp_path, flags):
+    """`compress` and a bare `decompress` through the CLI with --device
+    cuda: the file the host run writes (the kernels equal their plain
+    versions bit for bit), and the decode within the card-vs-host bar."""
+    from fwav_tpu_torch import cli
+
+    wav = _wav(tmp_path, 2.0)
+    out = {}
+    for device in ("cuda", "cpu"):
+        fwav = tmp_path / f"{device}.fwav"
+        kernels.reset_launch_counts()
+        assert cli.main(["compress", str(wav), str(fwav), "--device", device, *flags]) == 0
+        launched = sum(kernels.LAUNCHES.values())
+        assert launched > 0 if device == "cuda" else launched == 0
+        recon = tmp_path / f"{device}_recon.wav"
+        assert cli.main(["decompress", str(fwav), "--out", str(recon), "--device", device]) == 0
+        out[device] = (fwav.read_bytes(), port.read_wav_mono(recon)[0])
+    assert out["cuda"][0] == out["cpu"][0]
+    assert np.max(np.abs(out["cuda"][1] - out["cpu"][1])) <= 1.0  # one 16-bit LSB
+
+
+def test_topk_on_the_card_matches_the_host(dev):
+    """search="topk" on the card (torch ops, TF32 off for the shortlist
+    products; no kernel launched) against the host run of one second of
+    audio: the same sentinels, idx equal but at ties of the selection."""
+    from fwav_tpu_torch.ops import near_tie
+
+    sig = bench.make_signal(1.0)
+    kernels.reset_launch_counts()
+    gpu = port.compress_audio_arrays(sig, 44100, 2, search="topk", device="cuda")[0]
+    assert not any(kernels.LAUNCHES.values())
+    cpu = port.compress_audio_arrays(sig, 44100, 2, search="topk", device="cpu")[0]
+    np.testing.assert_array_equal(gpu["idx"] < 0, cpu["idx"] < 0)
+    assert int((gpu["idx"] != cpu["idx"]).sum()) <= near_tie.allowed_diffs(len(cpu))
+    torch.backends.cuda.matmul.allow_tf32 = True  # the guard turns it off per call
+    try:
+        again = port.compress_audio_arrays(sig, 44100, 2, search="topk", device="cuda")[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    np.testing.assert_array_equal(again["idx"], gpu["idx"])
+
+
+def test_reference_shaped_ops_run_on_the_card_by_default(dev):
+    """The reference-shaped ops with their default device, "cuda", against
+    the same calls on the host: the embeddings' explicit float32 sums give
+    the host's values, the shortlists and picks are the host's."""
+    from fwav_tpu_torch.ops import affine, dct, index, perceptual, search
+
+    rng = np.random.default_rng(21)
+    tile = rng.standard_normal(8).astype(np.float32)
+    bank = rng.standard_normal((40, 8)).astype(np.float32)
+    for fn in (dct.tile_embedding, dct.transient_embedding, dct.tonal_embedding,
+               dct.multi_head_embedding):
+        np.testing.assert_allclose(fn(tile), fn(tile, device="cpu"), rtol=0, atol=1e-6)
+    embs = dct.multi_head_embedding_batch(torch.from_numpy(bank)).numpy()
+    q = rng.standard_normal((5, 16)).astype(np.float32)
+    got = index.MIPSIndex(embs).query(q, top_k=8)
+    want = index.MIPSIndex(embs).query(q, top_k=8, device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(search.range_candidates_from_embedding(tile, embs, top_k=8),
+                                  search.range_candidates_from_embedding(tile, embs, top_k=8,
+                                                                         device="cpu"))
+    a = affine.find_best_domain_affine(tile, bank, [3, 7, 11])
+    b = affine.find_best_domain_affine(tile, bank, [3, 7, 11], device="cpu")
+    assert a[0] == b[0] and a[3] == b[3]
+    np.testing.assert_allclose(a[1:3] + a[4:], b[1:3] + b[4:], rtol=1e-5, atol=1e-5)
+    one = affine.affine_solve_single(tile, bank[2])
+    assert all(x.device.type == "cuda" for x in one)
+    np.testing.assert_allclose([float(x) for x in one],
+                               [float(x) for x in affine.affine_solve_single(tile, bank[2],
+                                                                             device="cpu")],
+                               rtol=1e-5, atol=1e-5)
+    err = perceptual.perceptual_error_batch(bank, tile)
+    assert err.device.type == "cuda"
+    np.testing.assert_allclose(err.cpu().numpy(),
+                               perceptual.perceptual_error_batch(bank, tile, device="cpu").numpy(),
+                               rtol=1e-5)
+    a = perceptual.pruned_affine_search(tile, list(range(40)), bank)
+    b = perceptual.pruned_affine_search(tile, list(range(40)), bank, device="cpu")
+    assert a[0] == b[0] and a[3] == b[3]
+    np.testing.assert_allclose(a[1:3] + a[4:], b[1:3] + b[4:], rtol=1e-5, atol=1e-5)

@@ -329,17 +329,19 @@ def _staged_parity(sig, sr, kw, refine="staged"):
     (dict(search="coarse", tile_size=256), "staged refine"),
 ])
 def test_unported_geometry_raises(kw, match):
-    """What is not ported raises, naming the ROADMAP item, instead of
-    running something else: search="topk". The geometries that used to
-    raise with it now run where the JAX package runs them, in the staged
+    """What used to raise now runs where the JAX package runs it, held to
+    the JAX CPU run: search="topk" (the embedding shortlist, at the topk
+    bar of tests/test_torch_topk.py), and the geometries of the staged
     refine (a coarse stride under 128 fails the window refine's gate:
     stride 64 at tile 512, with four damped lobes or two balanced ones, and
-    stride 32 at tile 256 with one lobe), and are held to the JAX CPU run
-    at the Encode bar."""
+    stride 32 at tile 256 with one lobe) at the Encode bar."""
     sig = _sig(40000)[0]
     if match == "topk":
-        with pytest.raises(NotImplementedError, match=match):
-            port.compress_audio_arrays(sig, 16000, 2, config=EncoderConfig(**kw), device="cpu")
+        from test_torch_topk import assert_topk_bar
+
+        J = jax_encode(sig, 16000, 2, config=JaxEncoderConfig(**kw))
+        T = port.compress_audio_arrays(sig, 16000, 2, config=EncoderConfig(**kw), device="cpu")
+        assert_topk_bar(sig, J, T)
         return
     _staged_parity(sig, 16000, kw)
 

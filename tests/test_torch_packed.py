@@ -164,8 +164,10 @@ def test_packed_errors(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port.compress_audio_packed([good], 16000, 2)
-    with pytest.raises(NotImplementedError, match="topk"):
-        port.compress_audio_packed([good], 16000, 2, search="topk", device="cpu")
+    # search="topk" is ported: a stack of one gives the single encode's records
+    got = port.compress_audio_packed([good], 16000, 2, search="topk", device="cpu")[0]
+    one = port.compress_audio_arrays(good, 16000, 2, search="topk", device="cpu")
+    assert got[0].tobytes() == one[0].tobytes() and tuple(got[2:]) == tuple(one[2:])
 
 
 def test_packed_cpu_run_launches_no_kernel():
