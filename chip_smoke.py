@@ -76,7 +76,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 12. cli_process: `python -m fwav_tpu_torch warmup` and `compress` in
    subprocesses (the in-process file, byte for byte);
 13. topk: `compress --search topk` of the 10 s file through the CLI:
-   no kernel launched, TOPK's sentinels and SNR (the JAX CLI's CPU run).
+   no kernel launched, TOPK's sentinels and SNR (the JAX CLI's CPU run);
+14. mesh: fwav_tpu_torch.parallel on meshes of distinct cards where there
+   are enough, else of cuda:0 repeated (cells that share a card run one
+   after another: no speed-up is expected): 10 s default and damped
+   through compress_audio_sharded at (2, 1), (1, 2), (2, 2) and (4, 1)
+   (K1 or K3, K2 and its table once per cell), a 0.5 s file on the exact
+   branch at tp 2 and 4 (K1 once per cell over its bank row shard), 100 s
+   through the stream at (2, 2) balanced and damped, a packed stack of 16
+   over 4 cells, the damped decode over dp 4 (each slab as it decodes
+   alone), the CLI's missing-card error (--devices 2 --tp 2, exit code 1)
+   and the API at (1, 2) writing the slice's v1 bytes, and two processes
+   on the card joined by init_distributed (gloo on the host); every
+   output byte for byte the single-device run's in this call, the
+   sentinels and SNR the constants above, wall times beside the
+   single-device ones.
 
 Each slice runs with the launch counts set to 0 just before it and read
 just after; a kernel of the slice that was not launched fails the run.
@@ -493,6 +507,7 @@ def main() -> int:
         return 2
     from bench import make_signal
     import fwav_tpu_torch as port
+    from fwav_tpu_torch.io import native
     from fwav_tpu_torch.models import encode as enc
     from fwav_tpu_torch.ops import _build, kernels
 
@@ -506,6 +521,10 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    # records are compared byte for byte below: the host refit must be the
+    # native one (its numpy fallback stores other s, o and err bits)
+    if native._load() is None:
+        raise AssertionError("the native library fwav_tpu_torch/_build/libfwavio.so did not load")
     t0 = time.perf_counter()
     lib_path, log = _build.build()
     build_s = time.perf_counter() - t0
@@ -545,6 +564,7 @@ def main() -> int:
     stream_kernel_checks(kernels, enc, dev, stream_sig, checks)
     stack_kernel_checks(kernels, enc, dev, sig, checks)
     staged_kernel_checks(port, kernels, enc, dev, checks)
+    mesh_kernel_checks(kernels, enc, dev, sig, stream_sig, checks)
     for key, val in checks.items():
         emit({"phase": "kernel", "check": key, "card": smi, **val})
 
@@ -594,10 +614,9 @@ def main() -> int:
     enc_s = statistics.median(times)
     cfg = port.EncoderConfig()
     raw_p, nr, nd, lb, db = enc._prep_signal(signal, cfg)
-    plan = enc._plan_search(cfg, lb // cfg.range_size, db)
     raw = torch.from_numpy(raw_p).to(dev)
     core_span_ms = cuda_ms(
-        lambda: enc.encode_core(raw, len(signal), nr, nd, lb, db, cfg, *plan), reps=5
+        lambda: enc.encode_core(raw, len(signal), nr, nd, lb, db, cfg), reps=5
     )
     emit({"phase": "slice", "card": smi, "seconds_audio": len(signal) / sr,
           "n_ranges": n_ranges, "sentinels": sentinels, "snr_db": snr,
@@ -614,6 +633,7 @@ def main() -> int:
                **staged_phase(port, kernels, smi)}
     by_path["multichannel"], api_files["ms"] = multichannel_phase(port, kernels, smi)
     by_path.update(cli_phase(port, kernels, smi, sig, stream_sig, api_files))
+    by_path.update(mesh_phase(port, kernels, smi, sig, stream_sig, api_files))
 
     def summary(key, prefix, main_check, stack_check):
         """Launches of every path; times and bound at the main path's
@@ -729,10 +749,9 @@ def damped_slice(port, kernels, enc, dev, smi, signal, sr, sw):
         lrec, lbank, ln, lrs, original_len=lolen, s_damping=hint, device="cuda"), reps=5)
     cfg = port.EncoderConfig(objective="damped")
     raw_p, nr, nd, lb, db = enc._prep_signal(signal, cfg)
-    plan = enc._plan_search(cfg, lb // cfg.range_size, db)
     raw = torch.from_numpy(raw_p).to(dev)
     core_span_ms = cuda_ms(
-        lambda: enc.encode_core(raw, len(signal), nr, nd, lb, db, cfg, *plan), reps=5
+        lambda: enc.encode_core(raw, len(signal), nr, nd, lb, db, cfg), reps=5
     )
     emit({"phase": "damped", "card": smi, "seconds_audio": len(signal) / sr,
           "n_ranges": n_ranges, "sentinels": sentinels, "decode_hint": hint,
@@ -810,6 +829,106 @@ def staged_kernel_checks(port, kernels, enc, dev, checks):
         else:
             checks[f"k1_staged_{name}"] = k1_check(
                 kernels, f"K1 staged {name}", args, False, 16384, **slow)
+
+
+def mesh_kernel_checks(kernels, enc, dev, sig, stream_sig, checks):
+    """K1, K3 and K2 at the shapes a cell of mesh_phase's meshes gives
+    them, each against its plain version on the card with no differing row
+    and no score error: a coarse cell's range sub-slab of the 10 s file
+    at (2, 1) and (1, 2) (57,344 ranges) and at (2, 2) and (4, 1) (28,672)
+    against its 3,584 subsampled rows, and of a 100 s stream shard at
+    (2, 2) (65,536 x 12,288); the 0.5 s exact clip's bank row shards at
+    tp 2 and 4 (6,144 ranges x 12,288 or 6,144 rows, the last shard's
+    valid rows cut to 8,739 and 2,595, and a shard with none, as a shorter
+    file leaves one); and one cell's share of the packed 16-file stack
+    over 4 cells (4 files of 114,688 ranges). The scan's domain split
+    (search_scan's n_split) follows the ranges of a launch, so these shapes
+    may run split configurations that the single-device shapes do not."""
+    import numpy as np
+    import torch
+
+    from fwav_tpu_torch.ops import near_tie
+
+    slow = {"plain_reps": 3, "plain_warmup": 1}
+
+    def zero(key, check):
+        if check["idx_diff"] or check["max_abs_err"]:
+            raise AssertionError(f"{key}: the kernel and its plain version differ: {check}")
+        checks[key] = check
+
+    def k2_case(key, name, means_ext, lobes, ranges, n_valid, objective):
+        k2 = (means_ext, lobes, ranges, n_valid, 128, 256, objective, 16.0)
+        zero(key, k2_check(kernels, name, k2, **slow))
+
+    def window_means(x, nbw, dc):
+        win = x[:nbw]
+        raw_norm = torch.from_numpy(win / np.abs(win).max()).to(dev)
+        return enc._means_setup(raw_norm, 4, 256, 128, dc)[0]
+
+    # coarse range sub-slabs: (ranges, subsampled rows, K2's n_valid, means)
+    means10 = window_means(sig, len(sig), 3584)
+    means_shard = window_means(stream_sig, 1572864, 12288)
+    for seed, (tag, M, D, n_valid, means) in enumerate((
+            ("10s_cell2", 57344, 3584, 439977, means10),
+            ("10s_cell4", 28672, 3584, 439977, means10),
+            ("stream_cell4", 65536, 12288, 1572864 - 1024 + 1, means_shard))):
+        rblk = enc._pow2_divisor(M, 16384)
+        zero(f"k1_mesh_{tag}", k1_check(kernels, f"K1 mesh {tag}",
+                                        kernel_inputs(dev, 500 + seed, M, D, "balanced"),
+                                        False, rblk, **slow))
+        zero(f"k3_mesh_{tag}", k3_check(kernels, f"K3 mesh {tag}",
+                                        kernel_inputs(dev, 510 + seed, M, D, "damped"),
+                                        rblk, **slow))
+        rng = np.random.default_rng(520 + seed)
+        ranges = torch.from_numpy(rng.standard_normal((M, 4)).astype(np.float32) * 0.3).to(dev)
+        lobes = torch.from_numpy(rng.integers(-1, D - 3, M).astype(np.int32)).to(dev)
+        k2_case(f"k2_mesh_{tag}", f"K2 mesh {tag}", means, lobes, ranges, n_valid,
+                "balanced")
+        lobes4 = k2_lobe_matrix(kernels, dev, 530 + seed, M, D, "damped", n_valid, 128)
+        k2_case(f"k2_mesh_lobes4_{tag}", f"K2 4 lobes mesh {tag}", means, lobes4, ranges,
+                n_valid, "damped")
+
+    # exact: each tp cell's bank row shard, its valid rows as the clip's
+    for tp, shard_valid in ((2, (12288, 8739)), (4, (6144, 2595, 0))):
+        D = 24576 // tp
+        for j, nv in enumerate(shard_valid):
+            args = list(kernel_inputs(dev, 540 + 4 * tp + j, 6144, D, "balanced"))
+            args[3] = torch.arange(D, device=dev) < nv
+            zero(f"k1_mesh_exact_tp{tp}_valid{nv}",
+                 k1_check(kernels, f"K1 mesh exact tp {tp}, {nv} valid rows", tuple(args),
+                          False, 2048, **slow))
+
+    # one cell's share of the packed stack: 4 files in one launch
+    B, M, D = PACK_FILES // 4, 114688, 3584
+    files = [kernel_inputs(dev, 560 + b, M, D, "balanced") for b in range(B)]
+    st = [torch.stack([f[k] for f in files]) for k in range(4)]
+    check = {**near_tie.check_argmax("K1 mesh packed share",
+                                     [x.reshape(-1) for x in kernels.search_scan(*st)],
+                                     [x.reshape(-1) for x in kernels.search_scan_ref(
+                                         *st, range_block=16384)]),
+             "shape": [B, M, D], **scan_bound(M, 4, int(st[3].sum()), D, 8, False, files=B)}
+    zero("k1_mesh_packed_share", timed(
+        check, lambda: kernels.search_scan(*st),
+        lambda: kernels.search_scan_ref(*st, range_block=16384), **slow))
+    n_valid = [439977 - 1000 * b for b in range(B)]
+    raw = np.stack([np.roll(sig, 4099 * b) for b in range(B)])
+    means_ext = enc._means_setup(torch.from_numpy(raw / np.abs(sig).max()).to(dev), 4, 256,
+                                 128, D)[0]
+    rng = np.random.default_rng(570)
+    ranges = torch.from_numpy(rng.standard_normal((B, M, 4)).astype(np.float32) * 0.3).to(dev)
+    lobes = torch.from_numpy(rng.integers(-1, D - 3, (B, M)).astype(np.int32)).to(dev)
+    geo = (128, 256, "balanced", 16.0)
+    check = near_tie.check_argmax(
+        "K2 mesh packed share",
+        [x.reshape(-1) for x in kernels.refine_window(means_ext, lobes, ranges, n_valid, *geo)],
+        [x.reshape(-1) for x in kernels.refine_window_ref(means_ext, lobes, ranges, n_valid,
+                                                           *geo)])
+    check = {**check, "shape": [*lobes.shape, int(means_ext.shape[1])],
+             **stack_refine_bound(lobes, 4, int(means_ext.shape[1]), "balanced", 128)}
+    zero("k2_mesh_packed_share", timed(
+        check, lambda: kernels.refine_window(means_ext, lobes, ranges, n_valid, *geo),
+        lambda: kernels.refine_window_ref(means_ext, lobes, ranges, n_valid, *geo),
+        timer=graph_ms, **slow))
 
 
 def stream_run(port, kernels, sig, reps, **kw):
@@ -1595,6 +1714,285 @@ def cli_phase(port, kernels, smi, sig, stream_sig, api_files):
           "files_equal_to_api": ["default", "compact", "ms", "packed", "subprocess"],
           "calls": calls})
     return out
+
+
+#: The (dp, tp) meshes of the mesh phase's 10 s encodes.
+MESH_SHAPES = [(2, 1), (1, 2), (2, 2), (4, 1)]
+#: The SNR bar of the damped decode over dp 4 against the one-device
+#: constant: each slab stops on its own delta, as in the JAX package, whose
+#: tests hold its sharded decode within 0.05 dB (tests/test_sharding.py).
+MESH_DECODE_SNR_TOL_DB = 0.05
+
+_LOOPBACK_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from bench import make_signal
+import fwav_tpu_torch as port
+from fwav_tpu_torch.ops import kernels
+from fwav_tpu_torch.parallel import compress_audio_sharded, init_distributed
+proc, port_no = int(sys.argv[1]), sys.argv[2]
+mesh = init_distributed("localhost:" + port_no, 2, proc, device="cuda", local_devices=["cuda:0"])
+assert mesh.shape == {"dp": 2, "tp": 1} and mesh.local_rows() == [proc], mesh
+sig = make_signal(10.0)
+out = {"process": proc}
+for name, kw in (("default", {}), ("damped", {"objective": "damped"})):
+    one = port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = compress_audio_sharded(sig, 44100, 2, mesh=mesh, **kw)
+    out[name] = {"wall_s": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES),
+                 "equal": bool(got[0].tobytes() == one[0].tobytes()
+                               and np.array_equal(got[1], one[1]))}
+print("LOOPBACK " + json.dumps(out), flush=True)
+"""
+
+
+def mesh_of(dp, tp):
+    """A (dp, tp) mesh of distinct cards where torch.cuda.device_count()
+    has dp * tp of them, else of cuda:0 repeated: (mesh, which)."""
+    import numpy as np
+    import torch
+
+    from fwav_tpu_torch.parallel import Mesh
+
+    n = dp * tp
+    if torch.cuda.device_count() >= n:
+        return Mesh(np.array([f"cuda:{i}" for i in range(n)], dtype=object).reshape(dp, tp)), \
+            "distinct cards"
+    return Mesh([["cuda:0"] * tp] * dp), "cuda:0 repeated"
+
+
+def loopback(kernels):
+    """Two processes on the card through init_distributed (gloo on the
+    host, both on cuda:0): each holds the sharded 10 s encodes, default and
+    damped, to its own single-device records. Returns each child's report."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port_no = str(sk.getsockname()[1])
+    procs = [subprocess.Popen([sys.executable, "-c", _LOOPBACK_CHILD, str(i), port_no],
+                              cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in (0, 1)]
+    reports = []
+    try:
+        for p in procs:
+            out = p.communicate(timeout=240)[0]
+            line = [ln for ln in out.splitlines() if ln.startswith("LOOPBACK ")]
+            if p.returncode != 0 or not line:
+                raise AssertionError(f"loopback process failed:\n{out[-3000:]}")
+            reports.append(json.loads(line[-1][len("LOOPBACK "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r in reports:
+        for name, scan in (("default", "search_scan"), ("damped", "topc_scan")):
+            rep = r[name]
+            if not rep["equal"]:
+                raise AssertionError(f"loopback p{r['process']} {name}: records differ")
+            need(f"loopback p{r['process']} {name}", rep["launches"],
+                 {scan: 1, "refine_window": 1, "window_stats": 1})
+    return reports
+
+
+def mesh_phase(port, kernels, smi, sig, stream_sig, api_files):
+    """Multi-device meshes on the card (fwav_tpu_torch/parallel): cells on
+    distinct cards where there are enough, else cuda:0 repeated, whose
+    cells run one after another (no speed-up is expected or claimed).
+    Every output is held byte for byte to the single-device run in this
+    call, and the sentinels and SNR to the constants above. Returns the
+    launch counts of the mesh runs."""
+    import numpy as np
+    import torch
+
+    from fwav_tpu_torch.models import codec
+    from fwav_tpu_torch.models.stream import _prune_streamed
+    from fwav_tpu_torch.parallel import compress_audio_sharded
+    from fwav_tpu_torch.utils.buckets import bucket, pad_to
+
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    cases = []
+
+    def run(name, fn, want, single_fn=None):
+        """fn() with the counts at 0 just before; its launches must equal
+        `want` (the others 0); then fn and single_fn timed once more."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        full = {k: want.get(k, 0) for k in launches}
+        if launches != full:
+            raise AssertionError(f"mesh {name}: launches {launches}, expected {full}")
+        for k, v in launches.items():
+            total[k] += v
+        case = {"case": name, "launches": launches, "first_wall_s": first}
+        for key, f in (("mesh_wall_s", fn), ("single_wall_s", single_fn)):
+            if f is not None:
+                t0 = time.perf_counter()
+                f()
+                torch.cuda.synchronize()
+                case[key] = time.perf_counter() - t0
+        cases.append(case)
+        return res, case
+
+    # 10 s, default and damped, through compress_audio_sharded
+    singles = {}
+    for obj, scan, sentinels in (("balanced", "search_scan", SLICE_SENTINELS),
+                                 ("damped", "topc_scan", DAMPED_SENTINELS)):
+        single = lambda obj=obj: port.compress_audio_arrays(sig, 44100, 2, objective=obj,
+                                                             device="cuda")
+        singles[obj] = single()
+        for dp, tp in MESH_SHAPES:
+            mesh, which = mesh_of(dp, tp)
+            cells = dp * tp
+            res, case = run(f"10 s {obj} ({dp}, {tp})",
+                            lambda: compress_audio_sharded(sig, 44100, 2, mesh=mesh,
+                                                           objective=obj),
+                            {scan: cells, "refine_window": cells, "window_stats": cells},
+                            single)
+            if not same_result(res, singles[obj]):
+                raise AssertionError(f"mesh 10 s {obj} ({dp}, {tp}): the records differ")
+            if int((res[0]["idx"] < 0).sum()) != sentinels:
+                raise AssertionError(f"mesh 10 s {obj}: {(res[0]['idx'] < 0).sum()} sentinels")
+            case.update(cells=cells, devices=which, equal_to_single=True)
+    rec, bank, n_ranges, rs, *_ = singles["balanced"]
+    snr = port.compute_snr(sig, port.decompress_audio(rec, bank, n_ranges, rs,
+                                                      original_len=len(sig), device="cuda"))
+    rec, bank, n_ranges, rs, *_ = singles["damped"]
+    snr_d = port.compute_snr(sig, port.decompress_audio(rec, bank, n_ranges, rs,
+                                                        original_len=len(sig),
+                                                        s_damping=0.25, device="cuda"))
+    if abs(snr - SLICE_SNR_DB) > SNR_TOL_DB or abs(snr_d - DAMPED_RECORDS_SNR_DB) > SNR_TOL_DB:
+        raise AssertionError(f"mesh 10 s: SNR {snr} / {snr_d} dB")
+
+    # the exact branch on a short file, the bank split over tp 2 and 4
+    clip = packed_signals(0.5, 1, seed0=200)[0]
+    one = port.compress_audio_arrays(clip, 44100, 2, search="exact", device="cuda")
+    for tp in (2, 4):
+        mesh, which = mesh_of(1, tp)
+        res, case = run(f"0.5 s exact (1, {tp})",
+                        lambda: compress_audio_sharded(clip, 44100, 2, mesh=mesh,
+                                                       search="exact"),
+                        {"search_scan": tp},
+                        lambda: port.compress_audio_arrays(clip, 44100, 2, search="exact",
+                                                           device="cuda"))
+        if not same_result(res, one):
+            raise AssertionError(f"mesh exact tp {tp}: the records differ")
+        case.update(cells=tp, devices=which, equal_to_single=True)
+
+    # 100 s through the stream at (2, 2): 5 shards x 4 cells, the pass once
+    mesh, which = mesh_of(2, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        for obj, want in (("balanced", {"search_scan": 20, "refine_window": 20,
+                                        "window_stats": 20}),
+                          ("damped", {"topc_scan": 21, "refine_window": 20,
+                                      "window_stats": 20})):
+            single = lambda obj=obj: port.compress_audio_streaming(
+                stream_sig, 44100, 2, objective=obj, device="cuda")
+            one = single()
+            res, case = run(f"100 s stream {obj} (2, 2)",
+                            lambda: port.compress_audio_streaming(stream_sig, 44100, 2,
+                                                                  objective=obj, mesh=mesh),
+                            want, single)
+            if res[0].tobytes() != one[0].tobytes() or tuple(res[2:]) != tuple(one[2:]):
+                raise AssertionError(f"mesh stream {obj}: the records differ")
+            if res[2] != STREAM_RANGES or int((res[0]["idx"] < 0).sum()) != STREAM_SENTINELS:
+                raise AssertionError(f"mesh stream {obj}: the sentinels")
+            if obj == "damped":
+                snr_s, dstats = stream_damped_decode(port, tmp, "mesh", stream_sig, res)[:2]
+                if (abs(snr_s - STREAM_DAMPED_SNR_DB) > SNR_TOL_DB
+                        or dstats["iterations"] != STREAM_DAMPED_ITERATIONS):
+                    raise AssertionError(f"mesh stream damped: {snr_s} dB, {dstats}")
+            else:
+                prec, pbank = _prune_streamed(res[0], stream_sig, res[4], res[3], res[5])
+                snr_s = port.compute_snr(stream_sig, port.decompress_audio(
+                    prec, pbank, res[2], res[3], original_len=res[7], device="cuda"))
+                if abs(snr_s - STREAM_BALANCED_SNR_DB) > SNR_TOL_DB:
+                    raise AssertionError(f"mesh stream balanced: {snr_s} dB")
+            case.update(cells=4, devices=which, equal_to_single=True, snr_db=snr_s)
+
+    # a packed stack of 16 ten-second files over the 4 cells of (2, 2)
+    ten = packed_signals(10.0, PACK_FILES)
+    one = port.compress_audio_packed(ten, 44100, 2, device="cuda")
+    res, case = run("packed 16 x 10 s over (2, 2)",
+                    lambda: port.compress_audio_packed(ten, 44100, 2, mesh=mesh),
+                    {"search_scan": 4, "refine_window": 4, "window_stats": 4},
+                    lambda: port.compress_audio_packed(ten, 44100, 2, device="cuda"))
+    if not all(same_result(a, b) for a, b in zip(res, one)):
+        raise AssertionError("mesh packed: a file differs from the single-device stack")
+    case.update(cells=4, devices=which, equal_to_single=True)
+
+    # the damped decode over dp 4: each slab as it decodes alone
+    mesh4, which4 = mesh_of(4, 1)
+    rec, bank, n_ranges, rs, *_ = singles["damped"]
+    kw = dict(original_len=len(sig), s_damping=0.25)
+    stats = {}
+    recon, case = run("10 s damped decode over dp 4",
+                      lambda: port.decompress_audio(rec, bank, n_ranges, rs, mesh=mesh4,
+                                                    stats=stats, **kw),
+                      {}, lambda: port.decompress_audio(rec, bank, n_ranges, rs,
+                                                        device="cuda", **kw))
+    mloc = pad_to(bucket(n_ranges, 256), 4 * 256) // 4
+    slabs, its = [], []
+    for a in range(0, n_ranges, mloc):
+        st = {}
+        r = rec[a : a + mloc]
+        slabs.append(port.decompress_audio(r, bank, len(r), rs, s_damping=0.25,
+                                           device="cuda", stats=st))
+        its.append(st["iterations"])
+    if not np.array_equal(recon, np.concatenate(slabs)[: len(sig)]):
+        raise AssertionError("mesh decode: differs from the slabs decoded alone")
+    snr_dp = port.compute_snr(sig, recon)
+    if (abs(snr_dp - DAMPED_RECORDS_SNR_DB) > MESH_DECODE_SNR_TOL_DB
+            or stats["iterations"] != max(its)):
+        raise AssertionError(f"mesh decode: {snr_dp} dB, {stats}, slabs {its}")
+    case.update(cells=4, devices=which4, slab_iterations=its, snr_db=snr_dp)
+
+    # the CLI: missing cards fail the file (exit 1), as in the JAX CLI; on
+    # one card the repeated mesh goes through the API and writes the same v1
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        wav = d / "bench10.wav"
+        port.write_wav(wav, sig, 44100, 2)
+        from fwav_tpu_torch import cli
+
+        argv = ["compress", str(wav), str(d / "m.fwav"), "--devices", "2", "--tp", "2"]
+        if torch.cuda.device_count() < 2:
+            rc = cli.main(argv)
+            err = codec.process_file_compress(str(wav), str(d / "m.fwav"), devices=2, tp=2)
+            if rc != 1 or (d / "m.fwav").exists() or "requested 2 devices but only" not in \
+                    err.get("error", ""):
+                raise AssertionError(f"mesh cli: exit {rc}, {err}")
+            cli_result = {"exit_code": rc, "error": err["error"]}
+        else:
+            if cli.main(argv) != 0 or (d / "m.fwav").read_bytes() != api_files["default"]:
+                raise AssertionError("mesh cli: --devices 2 --tp 2 differs from the API's file")
+            cli_result = {"exit_code": 0, "file_equal_to_api": True}
+        mesh12, _ = mesh_of(1, 2)
+        signal = port.read_wav_mono(wav)[0]
+        r, b, nr, rs2, tile, step, thr, olen = compress_audio_sharded(signal, 44100, 2,
+                                                                      mesh=mesh12)
+        pr, pb = port.prune_bank(r, b)
+        port.save_compressed(d / "api.fwav", pr, pb, rs2, 44100, 2, tile, step, thr, olen)
+        if (d / "api.fwav").read_bytes() != api_files["default"]:
+            raise AssertionError("mesh api: the (1, 2) mesh's v1 differs from the slice's")
+        cli_result["api_file_equal"] = True
+
+    reports = loopback(kernels)
+    for case in cases:
+        case["launches_per_cell"] = {k: v / case["cells"] for k, v in case["launches"].items()
+                                     if v}
+    emit({"phase": "mesh", "card": smi, "cuda_device_count": torch.cuda.device_count(),
+          "cases": cases, "launches": total, "cli": cli_result, "loopback": reports,
+          "snr_db": {"default": snr, "damped_records": snr_d}})
+    return {"mesh": total}
 
 
 if __name__ == "__main__":

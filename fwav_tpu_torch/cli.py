@@ -12,8 +12,9 @@ DEVICE_LOCK.
 New here: --device {cuda,cpu} on compress, decompress and warmup, "cuda"
 by default; a CUDA request without a card is the file's error (exit code
 1), never a run on the CPU. --gpu is accepted and does nothing. --devices
-or --tp above 1 is refused (one device is ported: ROADMAP.md Queue 1 item
-15). --exec-cache is accepted and ignored: it serializes XLA executables
+N runs over a (N // --tp, --tp) mesh of --device's kind (the cards, or N
+CPU cells for --device cpu); fewer cards than N is the file's error (exit
+code 1), as in the JAX CLI. --exec-cache is accepted and ignored: it serializes XLA executables
 in the JAX package, and the port's nvcc output is cached in
 fwav_tpu_torch/_build/.
 
@@ -308,10 +309,9 @@ def _add_device(p, help_tail=""):
                         "without a card fails the file" + help_tail)
 
 
-def _add_mesh_flags(p, devices_help):
+def _add_mesh_flags(p, devices_help, tp_help):
     p.add_argument("--devices", type=int, default=1, help=devices_help)
-    p.add_argument("--tp", type=int, default=1,
-                   help="mesh tp axis within --devices (not ported: 1 only)")
+    p.add_argument("--tp", type=int, default=1, help=tp_help)
     p.add_argument("--exec-cache", default=None, metavar="DIR",
                    help="accepted and ignored: the JAX package's serialized "
                         "executables; nvcc output is cached in fwav_tpu_torch/_build/")
@@ -370,7 +370,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "stores stereo as mid/side")
     pc.add_argument("--resume-dir", default=None, metavar="DIR",
                     help="shard-level crash recovery for long (streaming) encodes")
-    _add_mesh_flags(pc, "encode over an N-device mesh (not ported: 1 only)")
+    _add_mesh_flags(pc, "encode over an N-device mesh (ranges data-parallel; the records "
+                        "are bit-identical to one device's)",
+                    "bank tensor-parallel shards within --devices (dp = devices // tp)")
     _add_device(pc)
 
     pw = sub.add_parser(
@@ -418,7 +420,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="decode only from this time (exact segment decode)")
     pd.add_argument("--duration", type=float, default=None, metavar="SEC",
                     help="length of the decoded segment (with --start)")
-    _add_mesh_flags(pd, "decode over an N-device mesh (not ported: 1 only)")
+    _add_mesh_flags(pd, "run the damped (--damping > 0) decode loop range-sharded over an "
+                        "N-device mesh; the default damping=0 decode is a host closed "
+                        "form and ignores this",
+                    "mesh tp axis within --devices (decode shards only over "
+                    "dp = devices // tp)")
     _add_device(pd)
     return parser
 
@@ -427,9 +433,6 @@ def _check_mesh(parser, args):
     if args.devices < 1 or args.tp < 1 or args.devices % args.tp:
         parser.error(f"--tp must divide --devices (got devices={args.devices}, "
                      f"tp={args.tp})")
-    if args.devices > 1 or args.tp > 1:
-        parser.error(f"--devices {args.devices} --tp {args.tp}: a multi-device run is not "
-                     "ported yet (ROADMAP.md Queue 1 item 15: multi-GPU)")
 
 
 def main(argv=None) -> int:
@@ -476,7 +479,8 @@ def main(argv=None) -> int:
         gcand = {"auto": None, "on": True, "off": False}[args.global_candidates]
         kw = dict(search=args.search, prune_bank=args.prune_bank, compact=args.compact,
                   resume_dir=args.resume_dir, objective=objective, channels=args.channels,
-                  global_candidates=gcand, device=args.device)
+                  global_candidates=gcand, devices=args.devices, tp=args.tp,
+                  device=args.device)
         if not args.batch:
             if args.output is None:
                 parser.error("compress requires OUTPUT unless --batch is used")
@@ -493,7 +497,8 @@ def main(argv=None) -> int:
                 return process_files_compress_packed(
                     todo, tile=args.tile, energy_thresh=args.energy_thresh,
                     search=args.search, prune_bank=args.prune_bank,
-                    compact=args.compact, objective=objective, device=args.device,
+                    compact=args.compact, objective=objective, devices=args.devices,
+                    tp=args.tp, device=args.device,
                 )
             return _run_jobs(
                 lambda f, outp: process_file_compress(
@@ -522,7 +527,7 @@ def main(argv=None) -> int:
         else:
             recon_suffix = "_recon.wav"
         kw = dict(s_damping=args.damping, start_s=args.start, duration_s=args.duration,
-                  device=args.device)
+                  devices=args.devices, tp=args.tp, device=args.device)
         if not args.batch:
             out_file = args.out or (os.path.splitext(args.input)[0] + recon_suffix)
             return _exit_code(process_file_decompress(

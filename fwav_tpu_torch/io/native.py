@@ -7,8 +7,12 @@ The source is this package's native/fwavio.cpp, a byte-for-byte copy of
 the JAX package's fwav_tpu/native/fwavio.cpp (tests/test_torch_import.py
 holds the two equal). It is built with g++ at first use into this
 package's `_build/` directory. When no compiler or source is there, every entry
-point returns None (or False) and the callers run their numpy versions,
-which give the same results; this is host code and hides no device.
+point returns None (or False) and the callers run their numpy versions;
+this is host code and hides no device. The numpy refit does not give the
+native one's bytes: on the topk encode of bench.make_signal(1.0) the
+records differ in 7.44% of bytes with the same idx, in either package
+(scripts/compare_native_fallback.py), so a record compared byte for byte
+with another run needs the native library on both sides.
 """
 
 from __future__ import annotations

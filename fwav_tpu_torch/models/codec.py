@@ -16,8 +16,13 @@ a run on the CPU.
 Output paths: a path that ends in .fwav / .wav is the output file;
 anything else is a directory, as in the reference.
 
-Only one device is ported: devices > 1 or tp > 1 gives the file's error
-dict (ROADMAP.md Queue 1 item 15, multi-GPU).
+devices > 1 runs over a (dp = devices // tp, tp) mesh of `device`'s kind
+(parallel/mesh.py make_mesh): the single-shot encode through
+compress_audio_sharded, the streaming encode with every shard over the
+mesh, the packed batch with its files over every cell, and the damped
+decode range-sharded over dp (the closed-form decode ignores the mesh and
+builds none). The records are those of one device. Fewer devices than
+requested is the file's error, as make_mesh raises it.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from ..io.wav import read_wav, read_wav_mono, write_wav
 from ..utils.logging import logger
 from ..utils.metrics import compression_ratio, x_realtime
 from .decode import decompress_audio, decompress_segment
+from ..parallel.mesh import make_mesh
+from ..parallel.shard import compress_audio_sharded
 from .encode import compress_audio_arrays, compress_audio_packed, prune_bank as _prune
 from .stream import _prune_streamed, compress_audio_streaming, domain_block_iter
 
@@ -46,12 +53,11 @@ from .stream import _prune_streamed, compress_audio_streaming, domain_block_iter
 STREAMING_THRESHOLD = 1 << 22
 
 
-def _multi_device_error(path, devices, tp):
-    """The file's error dict for a mesh request, or None for one device."""
-    if (devices or 1) > 1 or (tp or 1) > 1:
-        return {"input": path, "error": (
-            f"devices={devices}, tp={tp}: a multi-device encode or decode is not "
-            "ported yet (ROADMAP.md Queue 1 item 15: multi-GPU)")}
+def _mesh(devices, tp, device):
+    """The (devices // tp, tp) mesh of `device`'s kind for devices > 1,
+    else None; ValueError when fewer devices are present."""
+    if devices and devices > 1:
+        return make_mesh(devices, dp=devices // tp, tp=tp, device=device)
     return None
 
 
@@ -112,12 +118,10 @@ def process_file_compress(path, outdir=None, tile=1024, energy_thresh=1e-4,
     the damped profile. channels: "fold" averages to mono; "keep" encodes
     every channel (one packed device program for a short file) into v3;
     "ms" stores stereo as mid/side. A mono file under keep/ms takes the
-    mono path. `use_gpu` is accepted for the reference's signature."""
+    mono path. devices > 1 encodes over a (devices // tp, tp) mesh (module
+    doc). `use_gpu` is accepted for the reference's signature."""
     if channels not in ("fold", "keep", "ms"):
         return {"input": path, "error": f"Unknown channels mode: {channels!r}"}
-    err = _multi_device_error(path, devices, tp)
-    if err:
-        return err
     if channels != "fold":
         try:
             ch_data = read_wav(path)[0]
@@ -126,7 +130,7 @@ def process_file_compress(path, outdir=None, tile=1024, energy_thresh=1e-4,
             return {"input": path, "error": str(e)}
         if ch_data.shape[1] > 1:
             return _process_file_compress_multi(
-                path, outdir, tile, energy_thresh, search=search,
+                path, outdir, tile, energy_thresh, search=search, devices=devices, tp=tp,
                 mid_side=(channels == "ms"), device=device, **kwargs,
             )
     if compact:
@@ -149,7 +153,7 @@ def process_file_compress(path, outdir=None, tile=1024, energy_thresh=1e-4,
             ) = compress_audio_streaming(
                 signal, framerate, sampwidth, tile_size=tile,
                 energy_thresh=energy_thresh, search=search, resume_dir=resume_dir,
-                device=device, **kwargs,
+                mesh=_mesh(devices, tp, device), device=device, **kwargs,
             )
             from ..ops.domains import n_domains_for
 
@@ -168,14 +172,22 @@ def process_file_compress(path, outdir=None, tile=1024, energy_thresh=1e-4,
                     domain_step, energy_threshold, original_len,
                 )
         else:
+            mesh = _mesh(devices, tp, device)
+            if mesh is not None:
+                enc = compress_audio_sharded(
+                    signal, framerate, sampwidth, mesh=mesh, tile_size=tile,
+                    energy_thresh=energy_thresh, search=search, **kwargs,
+                )
+            else:
+                enc = compress_audio_arrays(
+                    signal, framerate, sampwidth, tile_size=tile,
+                    energy_thresh=energy_thresh, use_gpu=use_gpu, search=search,
+                    device=device, **kwargs,
+                )
             (
                 rec, domains, n_ranges, range_size, tile_size, domain_step,
                 energy_threshold, original_len,
-            ) = compress_audio_arrays(
-                signal, framerate, sampwidth, tile_size=tile,
-                energy_thresh=energy_thresh, use_gpu=use_gpu, search=search,
-                device=device, **kwargs,
-            )
+            ) = enc
             logger.info("Processed %d ranges, domain matrix shape %s", n_ranges, domains.shape)
             if prune_bank:
                 rec, domains = _prune(rec, domains)
@@ -198,9 +210,10 @@ def process_file_compress(path, outdir=None, tile=1024, energy_thresh=1e-4,
 
 
 def _process_file_compress_multi(path, outdir, tile, energy_thresh, search="auto",
-                                 mid_side=False, device="cuda", **kwargs):
+                                 devices=1, tp=1, mid_side=False, device="cuda", **kwargs):
     """Channel-preserving compress: every channel encodes on its own, all
-    channels of a short file in one packed device program, a long file
+    channels of a short file in one packed device program (channel by
+    channel over a mesh, through compress_audio_sharded), a long file
     channel by channel through the streaming encoder; the pruned channels
     are written as one v3 container."""
     from ..io.multich import (
@@ -226,10 +239,19 @@ def _process_file_compress_multi(path, outdir, tile, energy_thresh, search="auto
             transform = TRANSFORM_MS
         signals = [np.ascontiguousarray(ch_data[:, c]) for c in range(ch_data.shape[1])]
 
+        mesh = _mesh(devices, tp, device)
         if len(signals[0]) > STREAMING_THRESHOLD:
             encoded = [
                 _streamed_pruned(sig, framerate, sampwidth, tile, energy_thresh, search,
-                                 device=device, **kwargs)
+                                 mesh=mesh, device=device, **kwargs)
+                for sig in signals
+            ]
+        elif mesh is not None:
+            encoded = [
+                _prune_tuple(_prune, compress_audio_sharded(
+                    sig, framerate, sampwidth, mesh=mesh, tile_size=tile,
+                    energy_thresh=energy_thresh, search=search, **kwargs,
+                ), framerate, sampwidth)
                 for sig in signals
             ]
         else:
@@ -268,7 +290,7 @@ def _prune_tuple(prune, enc, framerate, sampwidth):
 
 
 def _streamed_pruned(signal, framerate, sampwidth, tile, energy_thresh, search,
-                     device="cuda", **kwargs):
+                     mesh=None, device="cuda", **kwargs):
     """One channel through the streaming encoder and the prune from the
     signal (the mono streaming branch's recipe); the 9-tuple of the v3
     writer."""
@@ -277,7 +299,7 @@ def _streamed_pruned(signal, framerate, sampwidth, tile, energy_thresh, search,
         energy_threshold, original_len,
     ) = compress_audio_streaming(
         signal, framerate, sampwidth, tile_size=tile, energy_thresh=energy_thresh,
-        search=search, device=device, **kwargs,
+        search=search, mesh=mesh, device=device, **kwargs,
     )
     rec, bank = _prune_streamed(rec, signal, tile_size, range_size, domain_step)
     return (rec, bank, range_size, framerate, sampwidth, tile_size,
@@ -295,7 +317,9 @@ def process_files_compress_packed(jobs, tile=1024, energy_thresh=1e-4, search="a
     slice whose packed encode raises is encoded file by file on the same
     device. Returns one dict per job: "packed": True marks a file of a
     packed stack, whose time_s is the packed encode and save time shared
-    across those files; an unreadable file gives its error dict."""
+    across those files; an unreadable file gives its error dict. devices >
+    1 splits each stack's files over every cell of the (devices // tp, tp)
+    mesh; fewer devices than requested fails every job alike."""
     if compact:
         from ..io.compact import save_compressed_compact
 
@@ -305,8 +329,11 @@ def process_files_compress_packed(jobs, tile=1024, energy_thresh=1e-4, search="a
     else:
         _save = save_compressed
         prune_bank_ = prune_bank
-    if (devices or 1) > 1 or (tp or 1) > 1:
-        return [_multi_device_error(p, devices, tp) for p, _ in jobs]
+    try:
+        mesh = _mesh(devices, tp, device)
+    except ValueError as e:  # the single-file path's error dicts, for every job
+        logger.error("Batch mesh setup failed: %s", e)
+        return [{"input": p, "error": str(e)} for p, _ in jobs]
 
     def one_by_one(k):
         return process_file_compress(
@@ -340,7 +367,7 @@ def process_files_compress_packed(jobs, tile=1024, energy_thresh=1e-4, search="a
             encoded = compress_audio_packed(
                 [sig for _, sig, _, _ in loaded], 0, 0, tile_size=tile,
                 energy_thresh=energy_thresh, search=search, objective=objective,
-                device=device,
+                mesh=mesh, device=device,
             )
         except Exception:  # noqa: BLE001 — resolve blame per file
             logger.exception("Packed encode failed for a %d-file slice; falling back to "
@@ -399,10 +426,10 @@ def process_file_decompress(path, outdir=None, iterations=8, eps=1e-3, use_gpu=F
     the container's stored decode hint and falls back to 0 (the
     reference's default) where there is none; an explicit value, 0
     included, overrides the hint. A v3 file decodes every channel, undoes
-    mid/side and writes a multichannel WAV."""
-    err = _multi_device_error(path, devices, tp)
-    if err:
-        return err
+    mid/side and writes a multichannel WAV. devices > 1 runs a damped decode
+    (s_damping > 0) range-sharded over the mesh's dp axis; the closed form
+    (s_damping 0) ignores the mesh and builds none, so --devices N stays
+    harmless on a smaller host there."""
     try:
         start = time.time()
         hint_applied = None
@@ -412,6 +439,8 @@ def process_file_decompress(path, outdir=None, iterations=8, eps=1e-3, use_gpu=F
             if hint_applied:
                 logger.info("Using stored decode hint: s_damping=%.2f "
                             "(pass --damping to override)", s_damping)
+        if s_damping > 0:
+            kwargs["mesh"] = _mesh(devices, tp, device)
         decode_kwargs = dict(kwargs, iterations=iterations, convergence_eps=eps,
                              use_gpu=use_gpu, s_damping=s_damping, device=device)
         if read_version(path) == 3:

@@ -1,8 +1,8 @@
-"""Single-shot encode: compress_audio_arrays on one device.
+"""Single-shot encode: compress_audio_arrays, on one device or a mesh.
 
 The counterpart of fwav_tpu/models/encode.py's single-shot path
-(`compress_audio_arrays` -> `_compress_fast` -> the mode="raw" core at
-tp=1). `encode_core` is that core in eager PyTorch: normalize, device VAD,
+(`compress_audio_arrays` -> `_compress_fast` -> the mode="raw" core).
+`encode_core` is that core in eager PyTorch: normalize, device VAD,
 ranges with the reflect-padded tail, then the search, then the sentinel
 mask and the 3-byte idx codes. Only the codes leave the device; the host
 half (`_finalize_encode`, `collect_idx_matches`, `prune_bank`), copied
@@ -26,16 +26,26 @@ mode that "auto" never picks, is the JAX package's embedding shortlist
 Pallas kernel there either.
 
 Every device program here is written over a stack of files, (B, ...)
-tensors with one count per file; `encode_core` is the B = 1 case of
-`encode_core_packed`, which `compress_audio_packed` runs once per stack
-of same-bucket files: each kernel launches once per stack, with the file
-as the slowest axis of its grid, and one file's codes do not depend on
-its neighbours.
+tensors with one count per file, and runs on a (dp, tp) mesh of devices
+(parallel/mesh.py); one device is the one-cell mesh. `_mesh_program` is
+that one program: the part before the search (`_front_packed` for raw
+files, `_front_masked` for one streaming shard: the JAX core's
+mode="raw" and mode="masked"), replicated on every cell, then the search
+and `_pack_out`, split as the JAX core's dp/tp branches split them: dp
+rows take contiguous range slabs; under "coarse" a row's tp cells split
+its slab again, each running the one-cell search; under "exact" and
+"topk" each cell scans its bank row shard and the row merges the winners
+in the single-device tie order. Only the codes leave the devices and the
+host refits them, so the records equal the single-device encode's at
+every (dp, tp).
 
-The streaming encode (models/stream.py) runs two more device programs,
-the counterparts of the JAX core's mode="masked" and mode="global":
-`encode_core_masked` (one time shard: the host VAD as packed bits,
-window-local codes) and `encode_core_global` (the whole-file
+`encode_core_packed` (`encode_core` is its B = 1 case) is the program on
+one device, which `compress_audio_packed` runs once per stack of
+same-bucket files on every cell of its mesh: each kernel launches once
+per stack, with the file as the slowest axis of its grid, and one file's
+codes do not depend on its neighbours. The streaming encode
+(models/stream.py) runs one more device program, `encode_core_global`,
+the counterpart of the JAX core's mode="global" (the whole-file
 global-candidate pass: K3 nomination, then the staged window refine of
 ops/search.py).
 """
@@ -49,7 +59,7 @@ import torch
 
 from ..config import EncoderConfig
 from ..io.container import MATCH_DTYPE
-from ..ops.affine import affine_stats, refit_host, row_mean
+from ..ops.affine import affine_stats, batched_affine_match, refit_host, row_mean
 from ..ops.domains import box_sums, build_bank, build_domains_host, n_domains_for
 from ..ops.kernels import (
     pallas_blocks_ok,
@@ -63,12 +73,14 @@ from ..ops.search import (
     _window_gains,
     domain_thresh,
     domain_weights,
+    merge_shard_bests,
     refine_from_lobes,
+    topk_scores_block,
     topk_search_block,
 )
 from ..ops.vad import voiced_detection, voiced_mask
-from ..utils.buckets import bucket
-from ..utils.device import resolve_device
+from ..parallel.mesh import DP_AXIS, TP_AXIS, Mesh, as_mesh, fetch_global
+from ..utils.buckets import bucket, pad_to
 
 #: One card, one queue: the device programs of concurrent callers (the
 #: CLI's batch threads) run one at a time under this lock, as in the JAX
@@ -337,34 +349,26 @@ def _run_search(ranges, raw_norm, n_domains, nd, db: int, cfg: EncoderConfig,
     return torch.stack([f[0] for f in per_file]), torch.stack([f[1] for f in per_file])
 
 
-def _finish(ranges, raw_norm, nr, n_domains, nd, inv, db: int,
-            cfg: EncoderConfig, search_mode: str, stride: int, refine):
-    """The search, then the sentinel mask and the 3-byte codes, of a stack:
-    ranges (B, mb, n), raw_norm (B, nb), n_domains a list of B ints, nr and
-    nd the files' range and domain counts on the device (B,), inv (B,). The part the raw and masked programs share (the JAX
-    core's `finish` and `pack_out` at dp = tp = 1). Returns (B, mb, 3)
-    uint8."""
-    idx, score = _run_search(ranges, raw_norm, n_domains, nd, db, cfg, search_mode,
-                             stride, refine)
-    # sentinels: energy-pruned (mean power under 0.75 * thresh, on the
-    # normalized scale), bucket-pad rows, and rows with no finite score
-    mb = ranges.shape[1]
+def _pack_out(ranges, idx, score, nr, inv, cfg: EncoderConfig, row0: int = 0):
+    """The sentinel mask and the 3-byte codes of a stack's ranges (B, m, n)
+    from row0 of the file on (the JAX core's `pack_out`): energy-pruned
+    (mean power under 0.75 * thresh, on the normalized scale), bucket-pad
+    rows (at or past the file's range count nr (B,)) and rows with no finite
+    score are IDX3_SENTINEL. Returns (B, m, 3) uint8."""
+    m = ranges.shape[1]
     r_pow = row_mean(ranges * ranges)
     thr_n = (float(cfg.energy_thresh) * inv * inv)[:, None]
-    r_valid = torch.arange(mb, device=ranges.device)[None, :] < nr[:, None]
+    r_valid = row0 + torch.arange(m, device=ranges.device)[None, :] < nr[:, None]
     silent = (r_pow < thr_n * 0.75) if cfg.fast_mode else torch.zeros_like(r_valid)
     dead = silent | ~r_valid | ~torch.isfinite(score)
     return pack3(torch.where(dead, IDX3_SENTINEL, idx).to(torch.int32))
 
 
-def encode_core_packed(raw, n_samples, n_ranges, n_domains, lb: int, db: int,
-                       cfg: EncoderConfig, search_mode: str, stride: int, refine):
-    """The device program over a stack of same-bucket files: raw (B, nb),
-    the bucket-padded raw signals (int16 or float32, on the device), and
-    n_samples, n_ranges, n_domains, lists of B ints -> (B, lb // range_size,
-    3) uint8 idx codes, IDX3_SENTINEL for energy-pruned, padded and
-    no-candidate ranges. Each file is normalized, masked, cut into ranges
-    and searched as it is alone; each kernel launches once for the stack."""
+def _front_packed(raw, n_samples, n_ranges, n_domains, lb: int, cfg: EncoderConfig):
+    """The part of the raw program before the search, over a stack: each
+    file normalized, masked by the device VAD and cut into lb // range_size
+    ranges with its tail range reflect-padded. Returns (ranges (B, mb, n),
+    raw_norm (B, nb), nr, nd, inv), the last three (B,) on the device."""
     n = cfg.range_size
     B, nb = raw.shape
     mb = lb // n
@@ -386,17 +390,32 @@ def encode_core_packed(raw, n_samples, n_ranges, n_domains, lb: int, db: int,
     tail = weighted.gather(1, refl.clamp(0, nb - 1))              # (B, n)
     is_tail = (torch.arange(mb, device=dev)[None, :] == last) & (ns % n != 0)
     ranges = torch.where(is_tail[..., None], tail[:, None, :], ranges)
-    return _finish(ranges, rawf * inv[:, None], nr, n_domains, nd, inv, db, cfg,
-                   search_mode, stride, refine)
+    return ranges, rawf * inv[:, None], nr, nd, inv
+
+
+def encode_core_packed(raw, n_samples, n_ranges, n_domains, lb: int, db: int,
+                       cfg: EncoderConfig):
+    """The device program over a stack of same-bucket files on one device:
+    raw (B, nb), the bucket-padded raw signals (int16 or float32, on the
+    device), and n_samples, n_ranges, n_domains, lists of B ints -> (B,
+    lb // range_size, 3) uint8 idx codes, IDX3_SENTINEL for energy-pruned,
+    padded and no-candidate ranges. Each file is normalized, masked, cut
+    into ranges and searched as it is alone; each kernel launches once for
+    the stack. `_mesh_program` on the one-cell mesh of raw's device."""
+    return _mesh_program(
+        Mesh([[raw.device]]),
+        lambda d: _front_packed(raw, n_samples, n_ranges, n_domains, lb, cfg),
+        n_domains, lb, db, cfg,
+    )[0]
 
 
 def encode_core(raw, n_samples: int, n_ranges: int, n_domains: int, lb: int,
-                db: int, cfg: EncoderConfig, search_mode: str, stride: int, refine):
+                db: int, cfg: EncoderConfig):
     """The device program of one file: bucket-padded raw signal (int16 or
     float32, on the device) -> (lb // range_size, 3) uint8 idx codes. The
     stack of one of encode_core_packed."""
     return encode_core_packed(raw[None], [n_samples], [n_ranges], [n_domains], lb, db,
-                              cfg, search_mode, stride, refine)[0]
+                              cfg)[0]
 
 
 def _mask_weighted(raw, mask_bytes):
@@ -410,30 +429,29 @@ def _mask_weighted(raw, mask_bytes):
     return rawf, inv, rawf * (bits.reshape(-1).to(torch.float32) * inv)
 
 
-def encode_core_masked(raw, mask_bytes, meta, lb: int, db: int,
-                       cfg: EncoderConfig, search_mode: str, stride: int, refine):
-    """One streaming shard (the JAX core's mode="masked"): the window's
-    raw samples (int16 or float32, bucket-padded to nb, on the device), the
+def _front_masked(raw, mask_bytes, meta, lb: int, cfg: EncoderConfig):
+    """The part of one streaming shard's program before the search (the
+    JAX core's mode="masked", a stack of one window): the window's raw
+    samples (int16 or float32, bucket-padded to nb, on the device), the
     host VAD of the same samples as nb/8 packed bytes, and meta =
     (n_window_samples, range_offset, n_ranges, n_domains) as ints. The
     window is normalized by its own max|x|; the ranges are the lb weighted
     samples at range_offset (the host reflect-pads the file's tail before
-    it cuts the windows); the bank is built from the unmasked window.
-    Returns (lb // range_size, 3) uint8 codes of window-local rows."""
+    it cuts the windows); the bank is built from the unmasked window, so
+    the codes are window-local rows. Returns _front_packed's tuple."""
     n = cfg.range_size
     _, offset, n_ranges, n_domains = (int(v) for v in meta)
     nr, nd = _stack_counts(raw.device, [n_ranges], [n_domains])
     rawf, inv, weighted = _mask_weighted(raw, mask_bytes)
     off = min(max(offset, 0), raw.shape[0] - lb)  # lax.dynamic_slice's clamp
     ranges = weighted[off : off + lb].reshape(1, lb // n, n)
-    return _finish(ranges, (rawf * inv)[None], nr, [n_domains], nd, inv[None], db,
-                   cfg, search_mode, stride, refine)[0]
+    return ranges, (rawf * inv)[None], nr, nd, inv[None]
 
 
 def encode_core_global(raw, mask_bytes, meta, local_rows, lb: int, db: int,
                        cfg: EncoderConfig, stride: int, topc: int):
     """The whole-file global-candidate pass (the JAX core's mode="global").
-    Inputs as encode_core_masked's for the whole reflect-padded file (meta
+    Inputs as _front_masked's for the whole reflect-padded file (meta
     = (n_samples, 0, n_ranges, n_domains_total)), plus each range's
     shard-local winner as a whole-file row: (lb // range_size, 3) uint8
     codes when db < PACK3_MAX_ROWS, else int32 with -1 for none.
@@ -493,6 +511,192 @@ def encode_core_global(raw, mask_bytes, meta, local_rows, lb: int, db: int,
     return torch.where(win, best_i, -1).to(torch.int32)
 
 
+# --- the mesh program -------------------------------------------------------
+
+
+def _mesh_dims(mesh):
+    """(dp, tp) of a mesh."""
+    return mesh.shape[DP_AXIS], mesh.shape[TP_AXIS]
+
+
+def _shard_banks(cells, db: int, cfg: EncoderConfig):
+    """Each tp cell's contiguous row shard of the bank: [(row offset,
+    bank (B, db / tp, n), valid rows (B, db / tp))], built on the cell's
+    device from its replicated front."""
+    tp = len(cells)
+    dloc = db // tp
+    out = []
+    for j, (_, raw_norm, _, nd, _) in enumerate(cells):
+        off = j * dloc
+        bank = build_bank(raw_norm, cfg.tile_size, cfg.range_size, cfg.domain_step, db,
+                          nd, row_offset=off, d_rows=dloc)
+        rows = off + torch.arange(dloc, device=nd.device)
+        out.append((off, bank, rows[None, :] < nd[:, None]))
+    return out
+
+
+def _exact_tp(slabs, shards, cfg: EncoderConfig):
+    """"exact" over a row of tp cells: K1 over each cell's bank row shard,
+    the shard's offset added to its winners, merge_shard_bests on the first
+    cell's device. Returns (idx, score), each (B, M)."""
+    n = cfg.range_size
+    dev0 = slabs[0].device
+    scores, idxs = [], []
+    for rs, (off, bank, valid) in zip(slabs, shards):
+        d_mean, d_denom = affine_stats(bank)
+        score, lidx = search_scan(
+            rs - row_mean(rs)[..., None], bank.transpose(1, 2).contiguous(),
+            domain_weights(d_mean, d_denom, n, cfg.objective), valid,
+            domain_thresh(d_denom, cfg.objective, cfg.s_clip), cfg.s_clip,
+        )
+        scores.append(score.to(dev0))
+        idxs.append((lidx + off).to(dev0))
+    score = torch.stack(scores)
+    score, idx, _ = merge_shard_bests(score, torch.stack(idxs),
+                                      torch.zeros_like(score, dtype=torch.bool))
+    return idx, score
+
+
+def _topk_tp(slabs, shards, cfg: EncoderConfig):
+    """"topk" of one file over a row of tp cells (the JAX core's tp topk
+    branch): per range block of the JAX lax.map's size, each cell's top-k
+    shortlist of its bank row shard; on the first cell the shortlists
+    merge into the exact global top k (sorted by score descending, then
+    global row ascending: the order of the single-device merge); each cell
+    solves the candidates it owns, and the winners merge on (selection
+    score, position among the originals-then-mirrors), which is the
+    single-device solve's first minimum. slabs: (M, n) per cell; shards:
+    (offset, bank (D/tp, n), valid) per cell. Returns (idx, score), each
+    (M,), score -inf where no candidate was valid."""
+    half = cfg.emb_dim // 2
+    k = cfg.top_k
+    M = slabs[0].shape[0]
+    dev0 = slabs[0].device
+    dloc = shards[0][1].shape[0]
+    rblk = _pow2_divisor(M, cfg.range_block)
+    ldblk = _pow2_divisor(dloc, cfg.domain_block)
+    imax = torch.iinfo(torch.int32).max
+    embs = [multi_head_embedding_batch(bank, tonal_k=half, transient_k=half)
+            for _, bank, _ in shards]
+    idx_out, score_out = [], []
+    for r0 in range(0, M, rblk):
+        sc_all, key_all = [], []
+        for rs, (off, _, valid), emb in zip(slabs, shards, embs):
+            q = multi_head_embedding_batch(rs[r0 : r0 + rblk], tonal_k=half, transient_k=half)
+            sc, lidx = topk_scores_block(q, emb, valid, k, ldblk)
+            sc_all.append(sc.to(dev0))
+            key_all.append(torch.where(lidx >= 0, lidx + off, imax).to(dev0))
+        sc_all, key_all = torch.cat(sc_all, dim=1), torch.cat(key_all, dim=1)
+        # lexicographic (-score, row): a stable sort by row, then by -score
+        order = torch.sort(key_all, dim=1, stable=True).indices
+        sc_all, key_all = sc_all.gather(1, order), key_all.gather(1, order)
+        order = torch.sort(-sc_all, dim=1, stable=True).indices
+        key_all = key_all.gather(1, order)[:, :k]
+        cand = torch.where(key_all == imax, -1, key_all)          # global top k
+        sels, picks = [], []
+        for rs, (off, bank, _) in zip(slabs, shards):
+            c = cand.to(rs.device)
+            own = (c >= off) & (c < off + dloc)
+            *_, sel, pick = batched_affine_match(
+                rs[r0 : r0 + rblk], torch.where(own, c - off, -1), bank, s_clip=cfg.s_clip,
+                objective=cfg.objective, return_score=True,
+            )
+            sels.append(torch.where(torch.isfinite(sel), -sel, float("-inf")).to(dev0))
+            picks.append(pick.to(dev0))
+        # a slot is owned by one cell, so equal positions never tie
+        sel = torch.stack(sels)
+        score, pick, _ = merge_shard_bests(sel, torch.stack(picks),
+                                           torch.zeros_like(sel, dtype=torch.bool))
+        slot = torch.where(pick >= k, pick - k, pick).to(torch.int64)
+        idx = cand.gather(1, slot[:, None])[:, 0]
+        idx_out.append(idx)
+        score_out.append(torch.where(torch.isfinite(score) & (idx >= 0), score, float("-inf")))
+    return torch.cat(idx_out), torch.cat(score_out)
+
+
+def _mesh_program(mesh, front, n_domains, lb: int, db: int, cfg: EncoderConfig):
+    """The device program of a stack over the (dp, tp) cells of `mesh` (the
+    JAX core's `finish` and `pack_out`, with its dp/tp branches under
+    shard_map; a one-cell mesh is the single-device program): the rows this
+    process owns. front(device) copies the host inputs to a device and runs
+    the replicated part before the search (_front_packed or _front_masked),
+    once per distinct device of those rows. Dp row i takes the range slab
+    [i * mloc, (i + 1) * mloc); under "coarse" its tp cells split the slab
+    into sub-slabs, each searched by the single-device program planned at
+    the sub-slab's shape; under "exact" and "topk" each cell scans its bank
+    row shard and the row merges. The merge and the codes are on the row's
+    first cell. Every cell's work is enqueued on its own device with no
+    copy to the host. Returns {row: (B, mloc, 3) uint8 codes}."""
+    n = cfg.range_size
+    dp, tp = _mesh_dims(mesh)
+    mloc = lb // n // dp
+    search_mode, _ = _resolve_search(cfg, n, db)
+    split = tp if search_mode == "coarse" else 1  # coarse tp splits ranges
+    msub = mloc // split
+    plan = _plan_search(cfg, msub, db)  # at the shape of one cell's ranges
+    rows = mesh.local_rows()
+    fronts = {}
+    for i in rows:
+        for d in mesh.devices[i]:
+            if d not in fronts:
+                fronts[d] = front(d)
+    out = {}
+    for i in rows:
+        row0 = i * mloc
+        cells = [fronts[d] for d in mesh.devices[i]]
+        ranges0, raw_norm0, nr0, nd0, inv0 = cells[0]
+        dev0 = ranges0.device
+        if split > 1:
+            parts = [
+                _run_search(c[0][:, row0 + j * msub : row0 + (j + 1) * msub], c[1],
+                            n_domains, c[3], db, cfg, *plan)
+                for j, c in enumerate(cells)
+            ]
+            idx = torch.cat([p[0].to(dev0) for p in parts], dim=1)
+            score = torch.cat([p[1].to(dev0) for p in parts], dim=1)
+        elif tp > 1:
+            slabs = [c[0][:, row0 : row0 + mloc] for c in cells]
+            shards = _shard_banks(cells, db, cfg)
+            if search_mode == "exact":
+                idx, score = _exact_tp(slabs, shards, cfg)
+            elif search_mode == "topk":
+                per_file = [
+                    _topk_tp([s[b] for s in slabs], [(o, bk[b], v[b]) for o, bk, v in shards],
+                             cfg)
+                    for b in range(ranges0.shape[0])
+                ]
+                idx = torch.stack([f[0] for f in per_file])
+                score = torch.stack([f[1] for f in per_file])
+        else:
+            idx, score = _run_search(ranges0[:, row0 : row0 + mloc], raw_norm0, n_domains,
+                                     nd0, db, cfg, *plan)
+        out[i] = _pack_out(ranges0[:, row0 : row0 + mloc], idx, score, nr0, inv0, cfg, row0)
+    return out
+
+
+def _packed_cells(raw_np, n_samples, n_ranges, n_domains, lb: int, db: int,
+                  cfg: EncoderConfig, mesh):
+    """A packed stack over every cell of `mesh` (the JAX package's
+    _packed_sharded_core): the file axis, padded with copies of the last
+    file to a multiple of the cell count, splits into contiguous groups of
+    whole files, one per cell in flat (dp, tp) order, each encoded by the
+    single-device program on its cell. Returns {flat cell: (files, mb, 3)
+    codes} of the cells this process owns."""
+    B = raw_np.shape[0]
+    per = -(-B // mesh.size)
+    order = list(range(B)) + [B - 1] * (per * mesh.size - B)
+    flat = mesh.devices.reshape(-1)
+    out = {}
+    for k in mesh.local_cells():
+        sel = order[k * per : (k + 1) * per]
+        raw = raw_np if sel == list(range(B)) else raw_np[sel]
+        out[k] = encode_core_packed(
+            torch.from_numpy(raw).to(flat[k]), [n_samples[r] for r in sel],
+            [n_ranges[r] for r in sel], [n_domains[r] for r in sel], lb, db, cfg,
+        )
+    return out
+
+
 def _empty_result(cfg: EncoderConfig, original_len: int):
     return (
         np.empty(0, dtype=MATCH_DTYPE),
@@ -517,9 +721,23 @@ def _as_i16_or_f32(signal: np.ndarray):
     return signal, False
 
 
-def _prep_signal(signal: np.ndarray, cfg: EncoderConfig):
+def _range_split_factor(cfg: EncoderConfig, range_size: int, db: int, dp: int,
+                        tp: int) -> int:
+    """How many ways the range axis splits over the mesh: dp, times tp
+    where the search resolves to "coarse", whose tp splits ranges rather
+    than bank rows. Shared by _prep_signal and the streaming encode so that
+    their padding always matches the program's slab split."""
+    if tp > 1 and _resolve_search(cfg, range_size, db)[0] == "coarse":
+        return dp * tp
+    return dp
+
+
+def _prep_signal(signal: np.ndarray, cfg: EncoderConfig, dp: int = 1, tp: int = 1):
     """Counts and shape buckets (the JAX package's, so both take the same
-    search branch), and the padded raw buffer. Returns (raw_p, n_ranges,
+    search branch), and the padded raw buffer. On a real mesh the bank
+    bucket pads to a multiple of tp * 256 rows and the range bucket to a
+    multiple of (range split) * 256, as the JAX package pads them; at
+    dp = tp = 1 there is no such padding. Returns (raw_p, n_ranges,
     n_domains, lb, db), or None when the signal has no ranges or no
     domains. Raises ValueError past the 3-byte code's 2^24 rows."""
     range_size = cfg.range_size
@@ -535,32 +753,43 @@ def _prep_signal(signal: np.ndarray, cfg: EncoderConfig):
             "models.stream.compress_audio_streaming"
         )
     nb = bucket(original_len, 4096)
-    lb = bucket(n_ranges, 256) * range_size
-    db = bucket(n_domains, 256)
+    rb = bucket(n_ranges, 256)
+    dbk = bucket(n_domains, 256)
+    db = pad_to(dbk, tp * 256) if tp > 1 else dbk
+    rsplit = _range_split_factor(cfg, range_size, db, dp, tp)
+    lb = (pad_to(rb, rsplit * 256) if rsplit > 1 else rb) * range_size
     src, in_i16 = _as_i16_or_f32(signal)
     raw_p = np.zeros(nb, dtype=np.int16 if in_i16 else np.float32)
     raw_p[:original_len] = src
     return raw_p, n_ranges, n_domains, lb, db
 
 
-def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, device: torch.device):
+def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
+                  by_file: bool = False):
     """One stack of same-bucket files, each (signal, raw_p, n_ranges,
-    n_domains) of _prep_signal: the device core, the idx-only transfer, the
-    host refit. The host banks are built while the device runs (kernel
-    launches return at once); the one copy of the stack's codes waits for
-    the device. The enqueue and the copy each hold DEVICE_LOCK. Returns one
-    result per file."""
-    plan = _plan_search(cfg, lb // cfg.range_size, db)
+    n_domains) of _prep_signal: the device program over `mesh`, the
+    idx-only transfer, the host refit. The ranges of the stack split over
+    the cells (_mesh_program), or with `by_file` its files (_packed_cells).
+    The host banks are built while the devices run (kernel launches return
+    at once); one copy per cell brings the codes back. The enqueue of the
+    whole program and the copies each hold DEVICE_LOCK. Returns one result
+    per file."""
+    n = cfg.range_size
+    raw_np = np.stack([f[1] for f in files])
+    counts = ([len(f[0]) for f in files], [f[2] for f in files], [f[3] for f in files])
     with DEVICE_LOCK:
-        raw = torch.from_numpy(np.stack([f[1] for f in files])).to(device)
-        codes = encode_core_packed(
-            raw, [len(f[0]) for f in files], [f[2] for f in files], [f[3] for f in files],
-            lb, db, cfg, *plan,
-        )
-    banks = [build_domains_host(f[0], cfg.tile_size, cfg.range_size, cfg.domain_step)
-             for f in files]
+        if by_file:
+            codes = _packed_cells(raw_np, *counts, lb, db, cfg, mesh)
+        else:  # dp slabs along the range axis, gathered along axis 0
+            raw = torch.from_numpy(raw_np).to(mesh.first_local_device())
+            codes = _mesh_program(mesh, lambda d: _front_packed(raw.to(d), *counts, lb, cfg),
+                                  counts[2], lb, db, cfg)
+            codes = {i: v.transpose(0, 1) for i, v in codes.items()}
+    banks = [build_domains_host(f[0], cfg.tile_size, n, cfg.domain_step) for f in files]
     with DEVICE_LOCK:
-        c = codes.cpu().numpy()
+        c = fetch_global(codes, mesh)
+    if not by_file:
+        c = c.transpose(1, 0, 2)
     out = []
     for j, (signal, _, n_ranges, n_domains) in enumerate(files):
         assert len(banks[j]) == n_domains
@@ -569,13 +798,15 @@ def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, device: torch.dev
     return out
 
 
-def _compress_fast(signal: np.ndarray, cfg: EncoderConfig, device: torch.device):
-    """Single-shot encode: the stack of one file."""
-    prep = _prep_signal(signal, cfg)
+def _compress_fast(signal: np.ndarray, cfg: EncoderConfig, mesh: Mesh):
+    """Single-shot encode: the stack of one file over the (dp, tp) cells of
+    `mesh` (records bit-equal to the single-device encode's at every
+    (dp, tp))."""
+    prep = _prep_signal(signal, cfg, *_mesh_dims(mesh))
     if prep is None:
         return _empty_result(cfg, len(signal))
     raw_p, n_ranges, n_domains, lb, db = prep
-    return _encode_stack([(signal, raw_p, n_ranges, n_domains)], lb, db, cfg, device)[0]
+    return _encode_stack([(signal, raw_p, n_ranges, n_domains)], lb, db, cfg, mesh)[0]
 
 
 def _finalize_encode(c, signal, cfg, n_ranges, original_len, bank):
@@ -704,14 +935,14 @@ def compress_audio_arrays(
     del framerate, sampwidth  # not used by the encode; kept for API symmetry
     del ef_search, use_gpu, domains_tmpdir, batch_size_gpu, batch_size_cpu
     del transient_weight, n_mels, cpu_workers
-    dev = resolve_device(device)
+    mesh = as_mesh(None, device)
     cfg = config or EncoderConfig(
         tile_size=tile_size, emb_dim=emb_dim, top_k=top_k,
         energy_thresh=energy_thresh, fast_mode=fast_mode, search=search,
         objective=objective, global_candidates=global_candidates,
     )
     signal = np.ascontiguousarray(np.asarray(signal, dtype=np.float32))
-    return _compress_fast(signal, cfg, dev)
+    return _compress_fast(signal, cfg, mesh)
 
 
 def compress_audio_packed(
@@ -741,17 +972,16 @@ def compress_audio_packed(
 
     Returns a list of compress_audio_arrays-shaped 8-tuples in input
     order; an empty or too-short input gives the empty result in its place.
-    A ValueError of one input is re-raised as `signal {i}: ...`. `mesh`:
-    only None; a multi-device encode is not ported yet. `device`: "cuda"
-    (the default) or, when asked for, "cpu"."""
+    A ValueError of one input is re-raised as `signal {i}: ...`. `device`:
+    "cuda" (the default) or, when asked for, "cpu". `mesh`: a (dp, tp) mesh
+    of several cells splits each stack's file axis over every cell (whole
+    files per cell, in flat (dp, tp) order; the stack padded with copies of
+    its last file to a multiple of the cell count), each cell running the
+    single-device program on its files; the records are the same. A mesh
+    decides the devices: `device` is then not used."""
     del framerate, sampwidth  # not used by the encode; kept for API symmetry
     del global_candidates  # a streaming knob: a single-shot encode searches the whole bank
-    if mesh is not None:
-        raise NotImplementedError(
-            "compress_audio_packed(mesh=...) is not ported yet "
-            "(ROADMAP.md Queue 1 item 15: multi-GPU)"
-        )
-    dev = resolve_device(device)
+    mesh = as_mesh(mesh, device)
     cfg = config or EncoderConfig(
         tile_size=tile_size, energy_thresh=energy_thresh, fast_mode=fast_mode,
         search=search, objective=objective,
@@ -775,7 +1005,8 @@ def compress_audio_packed(
     for (_, lb, db, _), idxs in groups.items():
         for c0 in range(0, len(idxs), PACK_B_MAX):
             chunk = idxs[c0 : c0 + PACK_B_MAX]
-            done = _encode_stack([prepped[i] for i in chunk], lb, db, cfg, dev)
+            done = _encode_stack([prepped[i] for i in chunk], lb, db, cfg, mesh,
+                                 by_file=True)
             for i, res in zip(chunk, done):
                 results[i] = res
     return results

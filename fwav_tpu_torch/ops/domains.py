@@ -56,28 +56,37 @@ def build_bank(
     domain_step: int,
     d_bucket: int,
     n_domains,
+    row_offset: int = 0,
+    d_rows: int | None = None,
 ) -> torch.Tensor:
-    """(d_bucket, range_size) bank from a bucket-padded normalized signal;
-    rows >= n_domains are zero. Column j is the strided slice
-    means[j*block_len :: domain_step] of the box-mean sequence. A stack
-    signal_padded (B, nb) with n_domains a (B,) integer tensor on its
-    device gives (B, d_bucket, range_size)."""
+    """(d_rows or d_bucket, range_size) rows [row_offset, row_offset +
+    d_rows) of the d_bucket-row bank of a bucket-padded normalized signal;
+    rows whose global index is >= n_domains are zero. Column j is the
+    strided slice means[j*block_len :: domain_step] of the box-mean
+    sequence. A stack signal_padded (B, nb) with n_domains a (B,) integer
+    tensor on its device gives (B, rows, range_size). A bank row shard (the
+    tp branches of the mesh encode) holds the full bank's rows bit for
+    bit."""
     block_len = tile_size // range_size
     nb = signal_padded.shape[-1]
+    if d_rows is None:
+        d_rows = d_bucket
+    row_offset = min(max(int(row_offset), 0), d_bucket - d_rows)
     means = box_sums(signal_padded, block_len) * (1.0 / block_len)
     need = (range_size - 1) * block_len + (d_bucket - 1) * domain_step + 1
     if need > nb:
         means = torch.cat(
             [means, means.new_zeros((*means.shape[:-1], need - nb))], dim=-1)
-    span = (d_bucket - 1) * domain_step + 1
+    lo = row_offset * domain_step
+    span = (d_rows - 1) * domain_step + 1
     bank = torch.stack(
         [
-            means[..., j * block_len : j * block_len + span : domain_step]
+            means[..., lo + j * block_len : lo + j * block_len + span : domain_step]
             for j in range(range_size)
         ],
         dim=-1,
     )
-    rows = torch.arange(d_bucket, device=bank.device)
+    rows = row_offset + torch.arange(d_rows, device=bank.device)
     if torch.is_tensor(n_domains):
         n_domains = n_domains[..., None]
     return torch.where((rows < n_domains)[..., None], bank, 0.0)

@@ -2,7 +2,7 @@
 refine and the embedding shortlist: the torch counterparts of
 fwav_tpu/ops/search.py's `domain_weights`, `domain_thresh`,
 `_gain_from_num`, `_window_gains`, `refine_from_lobes` (its non-sharded
-form), `exact_search_block`, the topk search (`_topk_merge_scan`,
+form), `exact_search_block`, `merge_shard_bests`, the topk search (`_topk_merge_scan`,
 `topk_scores_block`, `topk_search_block`), the reference-shaped candidate
 helpers and, by name, `gain_topk_scan`. The scans themselves are the
 kernels in ops/kernels.py; the staged refine and the topk search have no
@@ -204,6 +204,24 @@ def exact_search_block(ranges, bank, d_mean, d_denom, d_valid, domain_block: int
     err = torch.where(torch.isfinite(score), err, float("inf"))
     out = (idx, s.clamp(-abs(s_clip), abs(s_clip)), o, sym.to(torch.uint8), err)
     return (*out, score) if return_score else out
+
+
+def merge_shard_bests(score, idx, sym):
+    """The per-shard winners of a bank split over tp, stacked on a leading
+    shard axis (S, ...), reduced in the single-device tie order: the larger
+    score, then the lower global domain row, then the original orientation
+    (sym 0) first. Returns the merged (score, idx, sym), each (...). The
+    tp branches of the mesh encode (models/encode.py) merge with it on the
+    cell that owns the row."""
+    best_s, best_i, best_y = score[0], idx[0], sym[0]
+    for k in range(1, score.shape[0]):
+        s_k, i_k, y_k = score[k], idx[k], sym[k]
+        tie = s_k == best_s
+        take = (s_k > best_s) | (tie & (i_k < best_i)) | (tie & (i_k == best_i) & ~y_k & best_y)
+        best_s = torch.where(take, s_k, best_s)
+        best_i = torch.where(take, i_k, best_i)
+        best_y = torch.where(take, y_k, best_y)
+    return best_s, best_i, best_y
 
 
 def _stable_topk(score, k: int):

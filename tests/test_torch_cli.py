@@ -39,6 +39,9 @@ from fwav_tpu_torch.io.multich import load_compressed_multi
 from fwav_tpu_torch.io.wav import read_wav, read_wav_mono, write_wav
 from fwav_tpu_torch.ops import near_tie
 from fwav_tpu_torch.utils.metrics import compute_snr
+from native_libs import ensure_native_libraries
+
+ensure_native_libraries()
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
@@ -400,6 +403,31 @@ def test_resume_dir_reaches_streaming(tmp_path, monkeypatch, jax_kernel_path):
     _assert_files_bar(tmp_path / "j.fwav", out, sig)
 
 
+@pytest.mark.parametrize("extra", [[], ["--compact"], ["--search", "exact"]])
+def test_devices_and_tp_on_cpu_cells(tmp_path, extra):
+    """compress --devices 2 --tp 2 --device cpu (a (1, 2) mesh of CPU cells)
+    writes the bytes of --devices 1; decompress --devices 4 runs a damped
+    decode over dp 4 (the compact file's stored hint) to the SNR of one
+    device's decode within 0.05 dB."""
+    wav = tmp_path / "a.wav"
+    sig = _speech(0.5, 11)
+    write_wav(wav, sig, 16000, 2)
+    outs = {}
+    for devices, tp in ((1, 1), (2, 2), (4, 1)):
+        out = tmp_path / f"d{devices}t{tp}.fwav"
+        assert port_cli.main(["compress", str(wav), str(out), "--device", "cpu",
+                              "--devices", str(devices), "--tp", str(tp), *extra]) == 0
+        outs[devices, tp] = out.read_bytes()
+    assert outs[2, 2] == outs[1, 1] == outs[4, 1]
+    snrs = []
+    for devices in (1, 4):
+        recon = tmp_path / f"r{devices}.wav"
+        assert port_cli.main(["decompress", str(tmp_path / "d1t1.fwav"), "--out", str(recon),
+                              "--device", "cpu", "--devices", str(devices)]) == 0
+        snrs.append(compute_snr(sig, read_wav_mono(recon)[0]))
+    assert abs(snrs[0] - snrs[1]) < 0.05, snrs
+
+
 def test_parser_validation_and_exit_codes(tmp_path, capsys):
     for argv in (["compress", "a.wav", "b.fwav", "--packed"],
                  ["compress", str(tmp_path), "--batch", "--workers", "0"],
@@ -412,12 +440,21 @@ def test_parser_validation_and_exit_codes(tmp_path, capsys):
             port_cli.main(argv)
         assert e.value.code == 2, argv
     capsys.readouterr()
-    for argv in (["compress", "a.wav", "b.fwav", "--devices", "2"],
-                 ["compress", "a.wav", "b.fwav", "--devices", "2", "--tp", "2"],
-                 ["decompress", "a.fwav", "--devices", "8"]):
-        with pytest.raises(SystemExit):
-            port_cli.main(argv)
-        assert "item 15" in capsys.readouterr().err, argv
+    # --devices is taken now: fewer cards than requested fails the file
+    # (exit code 1), as in the JAX CLI
+    wav = tmp_path / "a.wav"
+    write_wav(wav, _speech(0.3, 8), 16000, 2)
+    if torch.cuda.device_count() < 2:
+        for argv in (["compress", str(wav), str(tmp_path / "b.fwav"), "--devices", "2"],
+                     ["compress", str(wav), str(tmp_path / "b.fwav"), "--devices", "2",
+                      "--tp", "2"]):
+            assert port_cli.main(argv) == 1, argv
+            assert not (tmp_path / "b.fwav").exists()
+    assert port_cli.main(["compress", str(wav), str(tmp_path / "c.fwav"), "--device", "cpu",
+                          "--compact"]) == 0
+    if torch.cuda.device_count() < 8:
+        assert port_cli.main(["decompress", str(tmp_path / "c.fwav"), "--out",
+                              str(tmp_path / "c.wav"), "--devices", "8"]) == 1
     missing = ["compress", str(tmp_path / "missing.wav"), str(tmp_path / "o.fwav")]
     assert port_cli.main(missing + ["--device", "cpu"]) == 1
     assert port_cli.main(["decompress", str(tmp_path / "missing.fwav"), "--out",
@@ -488,7 +525,7 @@ def test_module_entry_point(tmp_path):
     assert out.returncode == 0 and "compress" in out.stdout
 
 
-def test_file_api_signatures_are_the_jax_packages():
+def test_file_api_signatures_are_the_jax_packages(tmp_path):
     """process_file_compress / process_file_decompress take the JAX
     package's parameters in its order, with `device` before **kwargs."""
     import inspect
@@ -511,8 +548,19 @@ def test_file_api_signatures_are_the_jax_packages():
     jpk = inspect.signature(jc.process_files_compress_packed).parameters
     tpk = inspect.signature(tc.process_files_compress_packed).parameters
     assert list(tpk) == list(jpk) + ["device"]
-    r = tc.process_file_compress("x.wav", devices=2)
-    assert "item 15" in r["error"] and r["input"] == "x.wav"
-    assert "item 15" in tc.process_file_decompress("x.fwav", tp=2)["error"]
-    assert all("item 15" in r["error"]
-               for r in tc.process_files_compress_packed([("a.wav", None)], devices=4))
+    # devices > 1 builds the mesh of `device`'s kind: missing cards are the
+    # file's error, as make_mesh raises it in the JAX package
+    wav = tmp_path / "x.wav"
+    write_wav(wav, _speech(0.3, 8), 16000, 2)
+    if torch.cuda.device_count() < 4:
+        r = tc.process_file_compress(str(wav), str(tmp_path / "x.fwav"), devices=2, tp=2)
+        if torch.cuda.device_count() < 2:
+            assert "requested 2 devices but only" in r["error"] and r["input"] == str(wav)
+        assert all("requested 4 devices but only" in r["error"]
+                   for r in tc.process_files_compress_packed([(str(wav), None)], devices=4))
+    r = tc.process_file_compress(str(wav), str(tmp_path / "y.fwav"), devices=2, tp=2,
+                                 device="cpu")
+    assert "error" not in r, r
+    one = tc.process_file_compress(str(wav), str(tmp_path / "z.fwav"), device="cpu")
+    assert "error" not in one
+    assert (tmp_path / "y.fwav").read_bytes() == (tmp_path / "z.fwav").read_bytes()

@@ -15,6 +15,9 @@ from fwav_tpu.io.multich import save_compressed_multi
 from fwav_tpu.models.encode import compress_audio_arrays as jax_encode
 from fwav_tpu.models.encode import prune_bank as jax_prune
 from fwav_tpu_torch.io import compact, native, rans
+from native_libs import ensure_native_libraries
+
+ensure_native_libraries()
 
 
 def _records(kind, seed=0):

@@ -545,6 +545,30 @@ def test_topk_on_the_card_matches_the_host(dev):
     np.testing.assert_array_equal(again["idx"], gpu["idx"])
 
 
+@pytest.mark.parametrize("seconds,kw,launches", [
+    (2.0, {}, {"search_scan": 4, "topc_scan": 0, "refine_window": 4, "window_stats": 4}),
+    (2.0, {"objective": "damped"},
+     {"search_scan": 0, "topc_scan": 4, "refine_window": 4, "window_stats": 4}),
+    (0.5, {"search": "exact"},
+     {"search_scan": 4, "topc_scan": 0, "refine_window": 0, "window_stats": 0}),
+])
+def test_repeated_card_mesh_matches_one_device(dev, seconds, kw, launches):
+    """A (2, 2) mesh of four cells on cuda:0 (parallel/mesh.py) gives the
+    records of the single-device encode on the card, coarse (one lobe and
+    damped: the cells split the ranges, each runs K1 or K3 and K2 with its
+    table once) and exact (each cell runs K1 once over its bank row
+    shard)."""
+    from fwav_tpu_torch.parallel import Mesh, compress_audio_sharded
+
+    sig = bench.make_signal(seconds)
+    one = port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
+    kernels.reset_launch_counts()
+    got = compress_audio_sharded(sig, 44100, 2, mesh=Mesh([["cuda:0"] * 2] * 2), **kw)
+    assert kernels.LAUNCHES == launches
+    np.testing.assert_array_equal(got[0].view(np.uint8), one[0].view(np.uint8))
+    np.testing.assert_array_equal(got[1], one[1])
+
+
 def test_reference_shaped_ops_run_on_the_card_by_default(dev):
     """The reference-shaped ops with their default device, "cuda", against
     the same calls on the host: the embeddings' explicit float32 sums give

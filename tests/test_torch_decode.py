@@ -26,6 +26,8 @@ import fwav_tpu_torch as port
 from fwav_tpu.models.decode import decompress_audio as jax_decode
 from fwav_tpu_torch.config import DecoderConfig
 from fwav_tpu_torch.models import decode as port_decode_mod
+from fwav_tpu_torch.parallel import Mesh
+from fwav_tpu_torch.utils.buckets import bucket, pad_to
 
 torch.set_num_threads(2)
 
@@ -204,13 +206,26 @@ def test_segment_on_the_loop(s_damping):
 
 
 def test_decode_mesh_argument():
-    """mesh=None is accepted, as the JAX signature has it; anything else
-    names the multi-GPU item."""
+    """mesh=None is the single-device decode, as the JAX signature has it.
+    A mesh runs the loop over its dp rows: each slab decodes as it does
+    alone (its own early stop), and the closed form ignores the mesh."""
     rec, bank = _fixture()
     out = port.decompress_audio(rec, bank, len(rec), 4, mesh=None, device="cpu")
     np.testing.assert_array_equal(out, port.decompress_audio(rec, bank, len(rec), 4,
                                                              device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        port.decompress_audio(rec, bank, len(rec), 4, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        port.decompress_segment(rec, bank, len(rec), 4, 0, 8, mesh=object(), device="cpu")
+    mesh = Mesh([["cpu"], ["cpu"]])
+    np.testing.assert_array_equal(
+        port.decompress_audio(rec, bank, len(rec), 4, mesh=mesh), out)
+    kw = dict(s_damping=0.25, iterations=8)
+    rec, bank = _fixture(M=700)  # two slabs of 512 and 188 ranges
+    got = port.decompress_audio(rec, bank, len(rec), 4, mesh=mesh, **kw)
+    half = pad_to(bucket(len(rec), 256), 512) // 2
+    slabs = [port.decompress_audio(rec[a : a + half], bank, len(rec[a : a + half]), 4,
+                                   device="cpu", **kw)
+             for a in range(0, len(rec), half)]
+    np.testing.assert_array_equal(got, np.concatenate(slabs))
+    seg = port.decompress_segment(rec, bank, len(rec), 4, 0, 8, mesh=mesh, **kw)
+    np.testing.assert_array_equal(seg, port.decompress_segment(
+        rec, bank, len(rec), 4, 0, 8, device="cpu", **kw))
+
+

@@ -36,6 +36,9 @@ from fwav_tpu.utils.metrics import compute_snr
 from fwav_tpu_torch.config import EncoderConfig
 from fwav_tpu_torch.models import encode as port_encode
 from fwav_tpu_torch.ops import kernels
+from native_libs import ensure_native_libraries
+
+ensure_native_libraries()
 
 torch.set_num_threads(2)
 

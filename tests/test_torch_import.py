@@ -131,10 +131,29 @@ def test_public_api_exports():
         assert name in port.__all__, name
     assert port.TOP_K == 32 and port.PACK_B_MAX == 16
     assert port.decompress_audio([], None, 0, 4, mesh=None, device="cpu").size == 0
-    with pytest.raises(NotImplementedError, match="item 15"):
-        port.decompress_audio([], None, 0, 4, mesh=object(), device="cpu")
+    from fwav_tpu_torch.parallel import make_mesh
+
+    assert port.decompress_audio([], None, 0, 4, mesh=make_mesh(2, device="cpu")).size == 0
     assert port.MATCH_DTYPE.itemsize == 17 and np.dtype(port.MATCH_DTYPE).names[0] == "idx"
     assert port.DAMPED_DECODE_DAMPING == 0.25
+
+
+def test_parallel_package_has_the_jax_packages_names():
+    """fwav_tpu_torch.parallel exports the JAX package's parallel names but
+    its NamedSharding helpers (no caller outside fwav_tpu/parallel; ROADMAP
+    "Not ported"), plus Mesh and fetch_global; loading it alone loads
+    neither jax nor fwav_tpu."""
+    import fwav_tpu.parallel as jp
+
+    import fwav_tpu_torch.parallel as tp
+
+    helpers = {"ranges_sharding", "bank_sharding", "replicated"}
+    assert set(tp.__all__) == (set(jp.__all__) - helpers) | {"Mesh", "fetch_global"}
+    assert (tp.DP_AXIS, tp.TP_AXIS) == (jp.DP_AXIS, jp.TP_AXIS)
+    code = ("import sys, fwav_tpu_torch.parallel\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fwav_tpu.'))]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
 def test_exports_cover_the_jax_packages_ported_names():

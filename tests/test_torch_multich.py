@@ -11,6 +11,9 @@ from test_torch_compact import _hdr, _records
 import fwav_tpu_torch as port
 from fwav_tpu.io import multich as jax_multich
 from fwav_tpu_torch.io import multich
+from native_libs import ensure_native_libraries
+
+ensure_native_libraries()
 
 
 def _channels(kinds):

@@ -22,6 +22,10 @@ from fwav_tpu.models.decode import decompress_audio as jax_decode
 from fwav_tpu_torch.config import EncoderConfig
 from fwav_tpu_torch.models import encode as port_encode
 from fwav_tpu_torch.ops import kernels, near_tie
+from fwav_tpu_torch.parallel import make_mesh
+from native_libs import ensure_native_libraries
+
+ensure_native_libraries()
 
 torch.set_num_threads(2)
 
@@ -159,8 +163,16 @@ def test_packed_errors(monkeypatch):
     with pytest.raises(ValueError, match="signal 1: too many domains"):
         port.compress_audio_packed([good, np.ones(77, np.float32)], 16000, 2, device="cpu")
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        port.compress_audio_packed([good], 16000, 2, mesh=object(), device="cpu")
+    # a mesh splits the stack's files over its cells: the same records; a
+    # mesh of more cards than there are raises make_mesh's ValueError
+    single = port.compress_audio_packed([good, good[:-300]], 16000, 2, device="cpu")
+    meshed = port.compress_audio_packed([good, good[:-300]], 16000, 2,
+                                        mesh=make_mesh(2, device="cpu"))
+    for a, b in zip(single, meshed):
+        assert a[0].tobytes() == b[0].tobytes() and a[2:] == b[2:]
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="requested 2 devices but only"):
+            port.compress_audio_packed([good], 16000, 2, mesh=make_mesh(2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port.compress_audio_packed([good], 16000, 2)

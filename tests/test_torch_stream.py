@@ -54,6 +54,10 @@ from fwav_tpu_torch.models import stream as port_stream
 from fwav_tpu_torch.ops import kernels
 from fwav_tpu_torch.ops.domains import build_domains_host, n_domains_for
 from fwav_tpu_torch.ops.search import refine_from_lobes
+from fwav_tpu_torch.parallel import Mesh
+from native_libs import ensure_native_libraries
+
+ensure_native_libraries()
 
 torch.set_num_threads(2)
 
@@ -293,8 +297,8 @@ def _resume(monkeypatch, tmp_path):
     assert len(files) == 3
     files[-1].unlink()
     calls = []
-    orig = port_stream.encode_core_masked
-    monkeypatch.setattr(port_stream, "encode_core_masked",
+    orig = port_stream._mesh_program
+    monkeypatch.setattr(port_stream, "_mesh_program",
                         lambda *a, **k: calls.append(1) or orig(*a, **k))
     np.testing.assert_array_equal(_small(sig, sr, resume_dir=str(ck))[0], first[0])
     assert len(calls) == 1
@@ -381,8 +385,10 @@ def test_streaming_takes_the_jax_kwargs():
     assert tuple(T[2:]) == tuple(J[2:])
     with pytest.raises(TypeError, match="unknown compress kwargs"):
         port.compress_audio_streaming(sig, sr, 2, device="cpu", shard_size=4096)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port.compress_audio_streaming(sig, sr, 2, device="cpu", mesh=object())
+    # every shard over a (2, 2) mesh of CPU cells: the same records
+    M = port.compress_audio_streaming(sig, sr, 2, shard_samples=4096, halo=2048,
+                                      mesh=Mesh([["cpu"] * 2] * 2), **kw)
+    assert M[0].tobytes() == T[0].tobytes() and tuple(M[2:]) == tuple(T[2:])
 
 
 def test_prep_signal_names_streaming():

@@ -50,6 +50,9 @@ from fwav_tpu_torch.ops import index as TI
 from fwav_tpu_torch.ops import kernels, near_tie
 from fwav_tpu_torch.ops import perceptual as TP
 from fwav_tpu_torch.ops import search as TS
+from native_libs import ensure_native_libraries
+
+ensure_native_libraries()
 
 torch.set_num_threads(2)
 
