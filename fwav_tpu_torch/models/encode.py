@@ -81,6 +81,8 @@ from ..ops.search import (
 from ..ops.vad import voiced_detection, voiced_mask
 from ..parallel.mesh import DP_AXIS, TP_AXIS, Mesh, as_mesh, fetch_global
 from ..utils.buckets import bucket, pad_to
+from ..utils.logging import device_banner
+from ..utils.trace import phase
 
 #: One card, one queue: the device programs of concurrent callers (the
 #: CLI's batch threads) run one at a time under this lock, as in the JAX
@@ -777,17 +779,24 @@ def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
     n = cfg.range_size
     raw_np = np.stack([f[1] for f in files])
     counts = ([len(f[0]) for f in files], [f[2] for f in files], [f[3] for f in files])
-    with DEVICE_LOCK:
-        if by_file:
-            codes = _packed_cells(raw_np, *counts, lb, db, cfg, mesh)
-        else:  # dp slabs along the range axis, gathered along axis 0
-            raw = torch.from_numpy(raw_np).to(mesh.first_local_device())
-            codes = _mesh_program(mesh, lambda d: _front_packed(raw.to(d), *counts, lb, cfg),
-                                  counts[2], lb, db, cfg)
-            codes = {i: v.transpose(0, 1) for i, v in codes.items()}
-    banks = [build_domains_host(f[0], cfg.tile_size, n, cfg.domain_step) for f in files]
-    with DEVICE_LOCK:
-        c = fetch_global(codes, mesh)
+    # the JAX package's phases: "device" from the enqueue to the codes on
+    # the host, "d2h" from the end of the enqueue, "host_bank" inside it
+    with phase("device"):
+        with DEVICE_LOCK:
+            if by_file:
+                codes = _packed_cells(raw_np, *counts, lb, db, cfg, mesh)
+            else:  # dp slabs along the range axis, gathered along axis 0
+                raw = torch.from_numpy(raw_np).to(mesh.first_local_device())
+                codes = _mesh_program(
+                    mesh, lambda d: _front_packed(raw.to(d), *counts, lb, cfg),
+                    counts[2], lb, db, cfg)
+                codes = {i: v.transpose(0, 1) for i, v in codes.items()}
+        with phase("d2h"):
+            with phase("host_bank"):
+                banks = [build_domains_host(f[0], cfg.tile_size, n, cfg.domain_step)
+                         for f in files]
+            with DEVICE_LOCK:
+                c = fetch_global(codes, mesh)
     if not by_file:
         c = c.transpose(1, 0, 2)
     out = []
@@ -817,9 +826,10 @@ def _finalize_encode(c, signal, cfg, n_ranges, original_len, bank):
     pad_len = (range_size - (original_len % range_size)) % range_size
     if cfg.fast_mode and bool(np.all(c == 0xFF)):  # every code 0xFFFFFF
         # all pruned: an all-silent file gives the empty container
-        voiced = voiced_detection(
-            signal, frame_size=range_size * 2, energy_threshold=cfg.energy_thresh,
-        )
+        with phase("vad"):
+            voiced = voiced_detection(
+                signal, frame_size=range_size * 2, energy_threshold=cfg.energy_thresh,
+            )
         if float(np.sum((signal * voiced).astype(np.float64) ** 2)) < 1e-8:
             return _empty_result(cfg, original_len)
         ranges_host = None
@@ -830,17 +840,19 @@ def _finalize_encode(c, signal, cfg, n_ranges, original_len, bank):
         padded = np.pad(signal, (0, pad_len), mode="reflect") if pad_len else signal
         ranges_host = padded.reshape(n_ranges, range_size)
     else:
-        voiced = voiced_detection(
-            signal, frame_size=range_size * 2, energy_threshold=cfg.energy_thresh,
-        )
-        weighted = signal * voiced
+        with phase("vad"):
+            voiced = voiced_detection(
+                signal, frame_size=range_size * 2, energy_threshold=cfg.energy_thresh,
+            )
+            weighted = signal * voiced
         if float(np.sum(weighted.astype(np.float64) ** 2)) < 1e-8:
             return _empty_result(cfg, original_len)
         if pad_len:
             weighted = np.pad(weighted, (0, pad_len), mode="reflect")
         ranges_host = weighted.reshape(n_ranges, range_size)
 
-    rec = collect_idx_matches(c, n_ranges, ranges_host, bank, cfg.s_clip)
+    with phase("refit"):
+        rec = collect_idx_matches(c, n_ranges, ranges_host, bank, cfg.s_clip)
     return (
         rec, bank, n_ranges, range_size, cfg.tile_size, cfg.domain_step,
         cfg.energy_thresh, original_len,
@@ -936,6 +948,7 @@ def compress_audio_arrays(
     del ef_search, use_gpu, domains_tmpdir, batch_size_gpu, batch_size_cpu
     del transient_weight, n_mels, cpu_workers
     mesh = as_mesh(None, device)
+    device_banner(mesh.first_local_device())
     cfg = config or EncoderConfig(
         tile_size=tile_size, emb_dim=emb_dim, top_k=top_k,
         energy_thresh=energy_thresh, fast_mode=fast_mode, search=search,
@@ -982,6 +995,8 @@ def compress_audio_packed(
     del framerate, sampwidth  # not used by the encode; kept for API symmetry
     del global_candidates  # a streaming knob: a single-shot encode searches the whole bank
     mesh = as_mesh(mesh, device)
+    for k in mesh.local_cells():
+        device_banner(mesh.devices.reshape(-1)[k])
     cfg = config or EncoderConfig(
         tile_size=tile_size, energy_thresh=energy_thresh, fast_mode=fast_mode,
         search=search, objective=objective,

@@ -27,11 +27,16 @@ program's `span_ms`: CUDA events from before its first launch to after its
 last kernel. A span includes the card's idle gaps while the host issues
 launches, so it is not the card's busy time; that comes from a
 torch.profiler trace (the sum of its kernels' durations), in which the
-ranges `stream.shard` and `stream.global_pass` mark each program.
+ranges `stream.shard` and `stream.global_pass` mark each program. The
+trace's phases (utils/trace.py: `vad`, then per shard `dispatch` = H2D +
+enqueue, `fetch_wait` and `host_refit`, and for the pass `global_h2d`,
+`global_dispatch`, `global_fetch` and their sum `global_pass`) are the
+same laps of the same clock, in seconds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -48,6 +53,7 @@ from ..ops.vad import voiced_detection
 from ..parallel.mesh import as_mesh, fetch_global
 from ..utils.buckets import bucket, pad_to
 from ..utils.logging import logger
+from ..utils.trace import add_phase
 from . import encode
 from .encode import (
     DEVICE_LOCK,
@@ -97,19 +103,31 @@ _CKPT_TOKEN = "fwav_tpu_torch-shapes-v2"
 
 class _Timer:
     """Host-clock phase times (ms) into a dict, and on a CUDA device the
-    CUDA-event span of one enqueued program (idle gaps included)."""
+    CUDA-event span of one enqueued program (idle gaps included). Its laps
+    are also the boundaries of the trace's phases (utils/trace.py), so that
+    the phases and `stats` read one clock."""
 
-    def __init__(self, dev: torch.device, out: dict):
+    def __init__(self, out: dict, dev: torch.device | None = None):
         self.out = out
         self.t = time.perf_counter()
         self.events, self.dev = None, dev
-        if dev.type == "cuda":
+        if dev is not None and dev.type == "cuda":
             self.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
     def lap(self, name: str) -> None:
+        """The time since the last lap, added to `name` (ms)."""
         now = time.perf_counter()
-        self.out[name] = (now - self.t) * 1e3
+        self.out[name] = self.out.get(name, 0.0) + (now - self.t) * 1e3
         self.t = now
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """The trace's phase `name` (and its profiler range) from the last
+        lap before the block to the last lap inside it."""
+        t0 = self.t
+        with torch.profiler.record_function(f"phase.{name}"):
+            yield
+        add_phase(name, self.t - t0)
 
     def record(self, i: int) -> None:
         if self.events is not None:  # on the stream of `dev`, whichever is current
@@ -175,17 +193,20 @@ def _global_pass(rec, signal, weighted, raw_src, voiced_p, cfg, original_len,
     lrows = pack3_np(lrows32) if packed else lrows32
 
     times = {"stride": stride, "db": db, "mb": lb // n}
-    timer = _Timer(dev, times)
-    with DEVICE_LOCK:
-        args = [torch.from_numpy(x).to(dev) for x in (raw_p, mask_bytes, lrows)]
-        timer.lap("h2d_ms")
-        timer.record(0)
-        with torch.profiler.record_function("stream.global_pass"):
-            out = encode_core_global(args[0], args[1], (L, 0, m, d_total), args[2], lb,
-                                     db, cfg, stride, cfg.global_topc)
-        timer.record(1)
-        timer.lap("enqueue_ms")
-    with DEVICE_LOCK:
+    timer = _Timer(times, dev)
+    # the JAX package's phases: "global_pass" sums its two locked blocks
+    with DEVICE_LOCK, timer.phase("global_pass"):
+        with timer.phase("global_h2d"):
+            args = [torch.from_numpy(x).to(dev) for x in (raw_p, mask_bytes, lrows)]
+            timer.lap("h2d_ms")
+        with timer.phase("global_dispatch"):
+            timer.record(0)
+            with torch.profiler.record_function("stream.global_pass"):
+                out = encode_core_global(args[0], args[1], (L, 0, m, d_total), args[2], lb,
+                                         db, cfg, stride, cfg.global_topc)
+            timer.record(1)
+            timer.lap("enqueue_ms")
+    with DEVICE_LOCK, timer.phase("global_pass"), timer.phase("global_fetch"):
         out = out.cpu().numpy()[:m]
         timer.lap("wait_ms")
     timer.span()
@@ -270,11 +291,12 @@ def compress_audio_streaming(
 
     # the VAD over the whole file, so that shard boundaries shift no
     # decision (the hysteresis carries from t = 0)
-    t0 = time.perf_counter()
-    voiced = voiced_detection(signal, frame_size=2 * n, energy_threshold=cfg.energy_thresh)
-    weighted = signal * voiced
+    timer = _Timer({} if stats is None else stats)
+    with timer.phase("vad"):
+        voiced = voiced_detection(signal, frame_size=2 * n, energy_threshold=cfg.energy_thresh)
+        weighted = signal * voiced
+        timer.lap("vad_ms")
     if stats is not None:
-        stats["vad_ms"] = (time.perf_counter() - t0) * 1e3
         stats["shards"] = []
     if float(np.sum(weighted.astype(np.float64) ** 2)) < 1e-8:
         # all silent: the empty result of the single-shot path
@@ -354,9 +376,9 @@ def compress_audio_streaming(
             )
         times = {"shard": k}
         raw_p, mask_bytes = _window_inputs(raw_src, voiced_p, g0, g0 + lenw, nbw)
-        timer = _Timer(dev, times)
+        timer = _Timer(times, dev)
         meta = (lenw, off, m, n_dom_w)
-        with DEVICE_LOCK:
+        with DEVICE_LOCK, timer.phase("dispatch"):
             raw = torch.from_numpy(raw_p).to(dev)
             mask = torch.from_numpy(mask_bytes).to(dev)
             timer.lap("h2d_ms")
@@ -368,19 +390,23 @@ def compress_audio_streaming(
                 )
             timer.record(1)
             timer.lap("enqueue_ms")
-        with DEVICE_LOCK:
+        with DEVICE_LOCK, timer.phase("fetch_wait"):
             b3 = fetch_global({i: v[0] for i, v in codes.items()}, mesh)[:m]
             timer.lap("wait_ms")
-        timer.span()
-        slots[k] = rec = _refit_shard(b3, signal, weighted[a:b].reshape(m, n), g0 // step, cfg)
+        with timer.phase("host_refit"):
+            timer.span()
+            slots[k] = rec = _refit_shard(b3, signal, weighted[a:b].reshape(m, n), g0 // step,
+                                          cfg)
+            timer.lap("refit_ms")
         if resume_dir:
             # write-to-temp + atomic rename: a kill mid-save never leaves a
-            # truncated checkpoint behind
+            # truncated checkpoint behind; the save is in refit_ms, not in
+            # the phase host_refit, as in the JAX package
             tmp = _ckpt(k) + ".tmp"
             with open(tmp, "wb") as f:  # np.save(path) would append .npy
                 np.save(f, rec)
             os.replace(tmp, _ckpt(k))
-        timer.lap("refit_ms")
+            timer.lap("refit_ms")
         if stats is not None:
             stats["shards"].append(times)
 

@@ -2,8 +2,9 @@
 refine and the embedding shortlist: the torch counterparts of
 fwav_tpu/ops/search.py's `domain_weights`, `domain_thresh`,
 `_gain_from_num`, `_window_gains`, `refine_from_lobes` (its non-sharded
-form), `exact_search_block`, `merge_shard_bests`, the topk search (`_topk_merge_scan`,
-`topk_scores_block`, `topk_search_block`), the reference-shaped candidate
+form), `coarse_refine_search`, `exact_search_block`, `merge_shard_bests`,
+the topk search (`_topk_merge_scan`, `topk_scores_block`,
+`topk_search_block`), the reference-shaped candidate
 helpers and, by name, `gain_topk_scan`. The scans themselves are the
 kernels in ops/kernels.py; the staged refine and the topk search have no
 kernel behind them in the JAX package either (jnp ops), so torch ops are
@@ -20,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .affine import batched_affine_match, row_mean, row_sum
+from .affine import affine_stats, batched_affine_match, row_mean, row_sum
 from .dct import ieee_fp32_matmul, multi_head_embedding_batch
 from .kernels import search_scan, topc_scan_ref
 
@@ -182,15 +183,26 @@ def exact_search_block(ranges, bank, d_mean, d_denom, d_valid, domain_block: int
     for the JAX package's signature: the kernel picks its own blocks."""
     del domain_block
     n = ranges.shape[1]
-    r_mean = row_mean(ranges)
-    r_c = ranges - r_mean[:, None]
+    r_c = ranges - row_mean(ranges)[:, None]
     score, idx = search_scan(
         r_c, bank.T.contiguous(), domain_weights(d_mean, d_denom, n, objective),
         d_valid, domain_thresh(d_denom, objective, s_clip), s_clip,
     )
+    out = _refit_winners(ranges, bank, idx, score, s_clip, objective)
+    return (*out, score) if return_score else out
+
+
+def _refit_winners(ranges, bank, idx, score, s_clip: float, objective: str):
+    """(idx, s, o, sym, err) of each range's selected bank row: the
+    orientation taken again from the row's two gains (the mirror only where
+    it scores strictly more), then the affine fit on the oriented tile; err
+    +inf where the score is not finite."""
+    r_mean = row_mean(ranges)
+    r_c = ranges - r_mean[:, None]
     rows = idx.to(torch.int64)
     _, use_m = _window_gains(r_c.T, bank, rows[None, :],
-                             torch.ones_like(d_valid[rows])[None, :], objective, s_clip)
+                             torch.ones_like(rows, dtype=torch.bool)[None, :], objective,
+                             s_clip)
     sym = use_m[0]
     tile = bank[rows]
     tile = torch.where(sym[:, None], tile.flip(-1), tile)
@@ -202,7 +214,41 @@ def exact_search_block(ranges, bank, d_mean, d_denom, d_valid, domain_block: int
     resid = r_c - s[:, None] * t_c
     err = torch.sqrt(row_sum(resid * resid))
     err = torch.where(torch.isfinite(score), err, float("inf"))
-    out = (idx, s.clamp(-abs(s_clip), abs(s_clip)), o, sym.to(torch.uint8), err)
+    return idx, s.clamp(-abs(s_clip), abs(s_clip)), o, sym.to(torch.uint8), err
+
+
+def coarse_refine_search(ranges, bank, d_mean, d_denom, d_valid, stride: int, top_c: int,
+                         domain_block: int, s_clip: float, objective: str = "balanced",
+                         return_score: bool = False):
+    """Coarse-to-fine search (the JAX package's op, its signature and
+    semantics): scan the bank's every stride-th row for the top-C lobes of
+    each range (`gain_topk_scan`), then refine the window around them
+    (`refine_from_lobes`) and refit the winner. ranges (M, N), bank (D, N)
+    the full bank, d_valid (D,) a prefix of valid rows; d_mean and d_denom
+    the bank's stats (D,), or None to take them from the subsampled rows
+    only. Returns (idx, s, o, sym, err), each (M,), err +inf where a range
+    has no candidate; with return_score the selection score follows.
+    Torch ops on the inputs' device, as the JAX op is jnp ops."""
+    M, N = ranges.shape
+    D = bank.shape[0]
+    assert D % stride == 0 and (D // stride) % domain_block == 0
+    r_c = ranges - row_mean(ranges)[:, None]
+    bank_sub = bank.reshape(D // stride, stride, N)[:, 0, :]
+    if d_mean is None:
+        # the weights are per row: stats of the subsampled rows equal the
+        # full bank's subsampled
+        sub_mean, sub_denom = affine_stats(bank_sub)
+        weight_sub = domain_weights(sub_mean, sub_denom, N, objective)
+        thresh_sub = domain_thresh(sub_denom, objective, s_clip)
+    else:
+        weight_sub = domain_weights(d_mean, d_denom, N, objective)[::stride]
+        thresh = domain_thresh(d_denom, objective, s_clip)
+        thresh_sub = None if thresh is None else thresh[::stride]
+    coarse = gain_topk_scan(r_c, bank_sub, weight_sub, d_valid[::stride], top_c,
+                            domain_block, d_thresh=thresh_sub, s_clip=s_clip)
+    idx, score = refine_from_lobes(ranges, bank, int(d_valid.sum()), coarse, stride,
+                                   s_clip, objective)
+    out = _refit_winners(ranges, bank, idx, score, s_clip, objective)
     return (*out, score) if return_score else out
 
 

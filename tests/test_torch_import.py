@@ -202,3 +202,77 @@ def test_read_wav_keeps_the_channels(tmp_path):
     assert got[1:] == want[1:]
     np.testing.assert_array_equal(got[0], want[0])
     assert got[0].shape == (800, 2)
+
+
+#: The JAX package's sub-package names that the port spells otherwise.
+RENAMED = {"voiced_mask_jax": "voiced_mask", "build_bank_jax": "build_bank",
+           "jax_profile": "torch_profile"}
+
+
+@pytest.mark.parametrize("sub", ["ops", "utils", "io"])
+def test_subpackages_export_the_jax_names(sub):
+    """fwav_tpu_torch.ops, .utils and .io export their JAX sub-packages'
+    __all__ under the written renames (utils adds resolve_device), and
+    every name resolves."""
+    import importlib
+
+    jax_all = importlib.import_module(f"fwav_tpu.{sub}").__all__
+    mod = importlib.import_module(f"fwav_tpu_torch.{sub}")
+    want = {RENAMED.get(n, n) for n in jax_all}
+    extra = {"resolve_device"} if sub == "utils" else set()
+    if sub == "io":  # the port's io also exports the v2 and streaming names
+        extra = set(mod.__all__) - want
+        assert extra <= set(port.__all__), extra
+    assert set(mod.__all__) == want | extra
+    for name in mod.__all__:
+        assert getattr(mod, name) is not None, name
+    assert not set(RENAMED) & set(mod.__all__)
+
+
+def test_ops_package_loads_no_kernels():
+    """Importing fwav_tpu_torch.ops, or an op that needs no scan, does not
+    load ops/kernels.py; an op that does loads it at first use."""
+    code = ("import sys, fwav_tpu_torch.ops as ops\n"
+            "from fwav_tpu_torch.ops import voiced_detection, build_bank, box_sums\n"
+            "assert 'fwav_tpu_torch.ops.kernels' not in sys.modules\n"
+            "ops.coarse_refine_search\n"
+            "assert 'fwav_tpu_torch.ops.kernels' in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+@pytest.fixture
+def fresh_banners(monkeypatch):
+    from fwav_tpu_torch.utils import logging as plog
+
+    monkeypatch.setattr(plog, "_banners", {})
+    return plog
+
+
+def test_device_banner_logs_once_per_device(fresh_banners, speechlike, caplog):
+    """The first encode on a device logs its banner; later ones do not;
+    the banner launches none of the port's kernels."""
+    from fwav_tpu_torch.ops import kernels
+
+    sig, sr, sw = speechlike
+    before = dict(kernels.LAUNCHES)
+    with caplog.at_level("INFO", logger="fwavc_torch"):
+        msg = port.utils.device_banner("cpu")
+        assert kernels.LAUNCHES == before
+        port.compress_audio_arrays(sig, sr, sw, device="cpu")
+        port.compress_audio_packed([sig], sr, sw, device="cpu")
+    lines = [r.getMessage() for r in caplog.records if "[FWAVC-TORCH]" in r.getMessage()]
+    assert lines == [msg] and "backend=cpu" in msg and msg.endswith("self-test=ok")
+    assert port.utils.device_banner(torch.device("cpu")) == msg
+
+
+def test_device_banner_raises_when_its_self_test_fails(fresh_banners, speechlike):
+    """No fallback: a failed self-test raises, and the encode with it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fresh_banners, "_self_test", lambda dev: False)
+        with pytest.raises(RuntimeError, match="self-test=FAILED"):
+            fresh_banners.device_banner("cpu")
+        sig, sr, sw = speechlike
+        with pytest.raises(RuntimeError, match="self-test=FAILED"):
+            port.compress_audio_arrays(sig, sr, sw, device="cpu")
+    assert fresh_banners._banners == {}
+    assert fresh_banners.device_banner("cpu").endswith("self-test=ok")

@@ -217,3 +217,48 @@ def test_bank_ops_stack_equals_per_file(B):
         ext_b, sub_b = means_setup(x[b], 4, 32, 16, 512)
         assert torch.equal(ext[b], ext_b) and torch.equal(sub[b], sub_b)
         assert not bank[b, n_dom[b]:].any()
+
+
+@pytest.mark.parametrize("stats", ["given", "subsampled"])
+@pytest.mark.parametrize("top_c", [1, 4])
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+def test_coarse_refine_search_matches_jax(objective, top_c, stats):
+    """ops/search.py coarse_refine_search against the JAX op on a signal's
+    bank (zero rows past its valid prefix, as the encode pads it), with the
+    bank's stats or (d_mean None) the subsampled rows': the same idx but at
+    near-ties (ops/near_tie.py), the same orientation where the idx agree,
+    s, o, err and the score to float tolerance."""
+    from fwav_tpu_torch.ops import coarse_refine_search
+    from fwav_tpu_torch.ops.near_tie import check_argmax
+
+    sig = bench.make_signal(0.5)
+    sig = (sig / np.abs(sig).max()).astype(np.float32)
+    n_valid = len(sig) - 1024 + 1
+    bank = np.zeros((22528, 4), np.float32)  # 704 subsampled rows at stride 32
+    bank[:n_valid] = jax_domains.build_domains_host(sig, 1024, 4, 1)
+    valid = np.arange(len(bank)) < n_valid
+    ranges = sig[4000:8096].reshape(1024, 4).copy()
+    args = (32, top_c, 64, 16.0)
+    jm = jd = tm = td = None
+    if stats == "given":
+        jm, jd = jax_affine.affine_stats(jnp.asarray(bank))
+        tm, td = affine.affine_stats(torch.from_numpy(bank))
+    want = jax_search.coarse_refine_search(
+        jnp.asarray(ranges), jnp.asarray(bank), jm, jd, jnp.asarray(valid), *args,
+        objective=objective, return_score=True)
+    got = coarse_refine_search(torch.from_numpy(ranges), torch.from_numpy(bank), tm, td,
+                               torch.from_numpy(valid), *args, objective=objective,
+                               return_score=True)
+    assert len(got) == 6 and len(coarse_refine_search(
+        torch.from_numpy(ranges), torch.from_numpy(bank), tm, td, torch.from_numpy(valid),
+        *args, objective=objective)) == 5
+    got = [g.numpy() for g in got]
+    want = [np.asarray(w) for w in want]
+    assert got[0].dtype == np.int32 and got[3].dtype == np.uint8
+    check_argmax("coarse_refine_search", (got[5], got[0]), (want[5], want[0]))
+    same = got[0] == want[0]
+    assert same.mean() > 0.99 and (got[0] < n_valid).all()
+    np.testing.assert_array_equal(got[3][same], want[3][same])
+    for k in (1, 2, 4):
+        np.testing.assert_allclose(got[k][same], want[k][same], rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(got[5], want[5], rtol=1e-5, atol=1e-6)

@@ -351,6 +351,54 @@ def test_streaming_behaviour(case, monkeypatch, tmp_path):
     BEHAVIOUR[case](monkeypatch, tmp_path)
 
 
+def _damage(kind: str, path) -> None:
+    """One shard checkpoint damaged as scripts/fuzz_resume.py damages them."""
+    m = len(np.load(path))
+    if kind == "missing":  # a crash before this shard
+        path.unlink()
+    elif kind == "truncated":  # a crash mid-write without the rename
+        path.write_bytes(path.read_bytes()[: path.stat().st_size // 2])
+    elif kind == "garbage":
+        path.write_bytes(np.random.default_rng(0).bytes(3000))
+    elif kind == "wrong_dtype":  # a valid .npy of another writer
+        np.save(path, np.zeros(m, np.float32))
+    elif kind == "wrong_length":
+        np.save(path, np.load(path)[: m - 1])
+    else:  # "stale_tmp": a crash between the write and the rename
+        path.with_name(path.name + ".tmp").write_bytes(path.read_bytes())
+        path.unlink()
+
+
+@pytest.fixture(scope="module")
+def undamaged():
+    sig, sr = small_sig()
+    return sig, sr, _small(sig, sr)[0]
+
+
+@pytest.mark.parametrize("kind", ["missing", "truncated", "garbage", "wrong_dtype",
+                                  "wrong_length", "stale_tmp"])
+def test_resume_under_damage(kind, undamaged, tmp_path, monkeypatch):
+    """The port's counterpart of scripts/fuzz_resume.py: a rerun over a
+    damaged shard checkpoint re-encodes that shard alone, rewrites its
+    checkpoint, and gives the records of an undamaged encode bit for bit."""
+    sig, sr, want = undamaged
+    ck = tmp_path / "ck"
+    first = _small(sig, sr, resume_dir=str(ck))[0]
+    assert first.tobytes() == want.tobytes()
+    files = sorted(ck.rglob("shard_*.npy"))
+    assert len(files) == 3
+    saved = files[1].read_bytes()
+    _damage(kind, files[1])
+    calls = []
+    orig = port_stream._mesh_program
+    monkeypatch.setattr(port_stream, "_mesh_program",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    again = _small(sig, sr, resume_dir=str(ck))[0]
+    assert again.tobytes() == want.tobytes()
+    assert len(calls) == 1
+    assert files[1].read_bytes() == saved
+
+
 # --- the API --------------------------------------------------------------------
 
 
