@@ -57,6 +57,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    one (a 60 s file, over the window refine's 9 MB means cap; 10 s at tile
    512 and at tile 2048), balanced and damped: K2 is not launched, the
    JAX package's sentinels and SNR, peak memory;
+9b. wide_tiles: the 10 s file at tile 8192 (range size 32: coarse, the
+   staged refine after K1, or damped K3) and at tile 16384 (range size 64:
+   the exact branch), where K1 and K3 run their wide kernels
+   (csrc/scan_wide.cuh; held to their plain versions at range sizes 17, 32
+   and 64 with the kernel checks of phase 3): the JAX package's sentinels
+   and SNR (WIDE); `compress --tile 8192` and `--tile 16384` through the
+   CLI, the API's bytes, and back;
 10. multichannel and segment: a stereo pair through mid/side, both
    channels damped in one packed call, the v3 container with the decode
    hint, the hinted decode of both on the card and the inverse
@@ -91,6 +98,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    output byte for byte the single-device run's in this call, the
    sentinels and SNR the constants above, wall times beside the
    single-device ones;
+14b. graphs: the device programs captured per shape key
+   (fwav_tpu_torch/models/program.py) against the eager runs of the same
+   calls: the 10 s default and damped encodes, a 0.5 s clip (exact), stacks
+   of 16 ten-second files and 16 clips, and the 100 s streams' shards,
+   each replay's records byte-equal to the eager ones with the eager launch
+   counts, each kernel those counts name found by name in a profiled
+   replay, and the main paths' sentinels and SNR; two lengths of one
+   bucket through one capture (a key's first call eager, its second
+   captured); two threads replaying one key in turns;
+   the enqueue eager against replayed (host clock), each program's capture
+   time, graph nodes and pool bytes;
 15. trace: the phase table of fwav_tpu_torch/utils/trace.py (the JAX
    package's phase names, TRACE_KEYS) on the 10 s default and damped
    encodes (device >= d2h >= host_bank, device + refit within the call's
@@ -100,14 +118,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the card's busy time beside the phases; busy_ms inside and outside a
    collector (the same work on the card and the same records of it, the
    ranges dropped as annotations; every profiled block starts on a card
-   kept working, and the records the profiler lost are counted);
+   kept working, and the records the profiler lost are counted, a replayed
+   program's graph launch owing a record for each of its graph's kernel,
+   copy and memset nodes);
    the 10 s encode's median of 12 calls with and without a collector; and
    examples/torch_round_trip.py on the card.
 
 Each slice runs with the launch counts set to 0 just before it and read
 just after; a kernel of the slice that was not launched fails the run.
-The last lines are the nvidia-smi line, a JSON summary of the kernels, and
-{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
+The last lines are the seconds of each part of the run, the nvidia-smi
+line, a JSON summary of the kernels, and {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 before printing any result.
 """
 
@@ -178,6 +198,25 @@ STAGED = {
     "tile2048_damped": {"seconds": 10.0, "kw": {"tile_size": 2048, "objective": "damped"},
                         "decode": {"s_damping": 0.25},
                         "n_ranges": 55125, "sentinels": 4130, "snr_db": 12.0344},
+}
+# The wide tiles' reference numbers: 10 s single-shot encodes whose range
+# size is over 16 (tile 8192: N = 32, domain_step 8; tile 16384: N = 64,
+# domain_step 16), where K1 and K3 run their wide kernels
+# (fwav_tpu_torch/csrc/scan_wide.cuh): tile 8192 takes the coarse search
+# with the staged refine (K1 balanced; K3's four lobes damped), tile 16384
+# the exact branch (K1 over the whole 28,672-row bank). From the JAX
+# package's CPU run on its kernel path by scripts/derive_staged_constants.py;
+# tests/test_torch_encode.py re-derives them.
+WIDE = {
+    "tile8192_balanced": {"seconds": 10.0, "kw": {"tile_size": 8192}, "decode": {},
+                          "plan": ["coarse", 128, "staged"],
+                          "n_ranges": 13782, "sentinels": 1029, "snr_db": 0.5834},
+    "tile8192_damped": {"seconds": 10.0, "kw": {"tile_size": 8192, "objective": "damped"},
+                        "decode": {"s_damping": 0.25}, "plan": ["coarse", 128, "staged"],
+                        "n_ranges": 13782, "sentinels": 1029, "snr_db": 2.0747},
+    "tile16384_exact": {"seconds": 10.0, "kw": {"tile_size": 16384}, "decode": {},
+                        "plan": ["exact", 128, None],
+                        "n_ranges": 6891, "sentinels": 513, "snr_db": 0.1634},
 }
 # The topk compatibility mode's reference numbers: the JAX package's CLI on
 # the CPU, `compress bench10.wav OUT --search topk` then a bare
@@ -283,7 +322,9 @@ def graph_ms(fn, reps: int = 20, inner: int = 10) -> float:
     """Median milliseconds of one fn() on the card alone: `inner` calls are
     captured in a CUDA graph and the graph is replayed, so no host time
     between launches is counted. For kernels shorter than the host takes to
-    launch them, which kernel_ms would time as the host's launch rate."""
+    launch them, which kernel_ms would time as the host's launch rate. fn
+    copies nothing from the host: K2 takes its n_valid as a device tensor
+    here (device_counts), as the captured encode programs give it."""
     import torch
 
     fn()
@@ -293,6 +334,15 @@ def graph_ms(fn, reps: int = 20, inner: int = 10) -> float:
         for _ in range(inner):
             fn()
     return cuda_ms(graph.replay, reps=reps) / inner
+
+
+def device_counts(n_valid, dev):
+    """K2's n_valid (an int, or one int per file) as the int32 device
+    tensor the kernel reads: the same values, no copy from the host at
+    the launch."""
+    import torch
+
+    return torch.tensor(n_valid, dtype=torch.int32).reshape(-1).to(dev)
 
 
 def bound(terms: dict) -> dict:
@@ -431,12 +481,13 @@ def k2_check(kernels, name, k2, **plain_timing):
 
     from fwav_tpu_torch.ops import near_tie
 
-    means_ext, lobes, ranges, _, stride, block_len, objective, _ = k2
+    means_ext, lobes, ranges, n_valid, stride, block_len, objective, _ = k2
     N = int(ranges.shape[1])
     check = near_tie.check_argmax(name, kernels.refine_window(*k2),
                                   kernels.refine_window_ref(*k2))
     if check["idx_diff"] or check["max_abs_err"]:
         raise AssertionError(f"{name}: the kernel and its plain version differ: {check}")
+    k2 = (*k2[:3], device_counts(n_valid, means_ext.device), *k2[4:])
     stats = kernels.window_stats(means_ext, N, block_len, objective)
     torch.cuda.synchronize()
     check = {**check, "shape": [*lobes.shape, int(means_ext.shape[0])],
@@ -542,12 +593,12 @@ def main() -> int:
     from fwav_tpu_torch.ops import _build, kernels
 
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    emit({"phase": "device", "name": name, "nvidia_smi": smi,
+    emit({"phase": "device", "name": kind, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
@@ -561,6 +612,14 @@ def main() -> int:
     _build.load()
     emit({"phase": "build", "seconds": build_s, "library": str(lib_path),
           "ptxas": ptxas_summary(log) if log else "up to date"})
+
+    # seconds of each part of the run, printed at its end
+    seconds, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
 
     # --- kernels vs plain, at main-path shapes ----------------------------
     checks = {}
@@ -595,8 +654,10 @@ def main() -> int:
     stack_kernel_checks(kernels, enc, dev, sig, checks)
     staged_kernel_checks(port, kernels, enc, dev, checks)
     mesh_kernel_checks(kernels, enc, dev, sig, stream_sig, checks)
+    wide_kernel_checks(kernels, dev, checks)
     for key, val in checks.items():
         emit({"phase": "kernel", "check": key, "card": smi, **val})
+    lap("kernels")
 
     # --- the slice through the public API ---------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -655,33 +716,55 @@ def main() -> int:
           "x_realtime": len(signal) / sr / enc_s, "core_span_ms_median5": core_span_ms,
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
 
+    lap("slice")
     damped_launches, api_files["compact"] = damped_slice(port, kernels, enc, dev, smi,
                                                          signal, sr, sw)
-    by_path = {"balanced": launches, "damped": damped_launches,
-               **stream_phase(port, kernels, smi, stream_sig),
-               **packed_phase(port, kernels, enc, smi),
-               **staged_phase(port, kernels, smi)}
+    by_path = {"balanced": launches, "damped": damped_launches}
+    lap("damped")
+    for part, run in (("stream", lambda: stream_phase(port, kernels, smi, stream_sig)),
+                      ("packed", lambda: packed_phase(port, kernels, enc, smi)),
+                      ("staged", lambda: staged_phase(port, kernels, smi)),
+                      ("wide_tiles", lambda: wide_phase(port, kernels, smi, sig))):
+        by_path.update(run())
+        lap(part)
     by_path["multichannel"], api_files["ms"] = multichannel_phase(port, kernels, smi)
-    by_path.update(cli_phase(port, kernels, smi, sig, stream_sig, api_files))
-    by_path.update(mesh_phase(port, kernels, smi, sig, stream_sig, api_files))
-    by_path.update(trace_phase(port, kernels, smi, sig, stream_sig))
+    lap("multichannel")
+    for part, run in (
+            ("cli", lambda: cli_phase(port, kernels, smi, sig, stream_sig, api_files)),
+            ("mesh", lambda: mesh_phase(port, kernels, smi, sig, stream_sig, api_files)),
+            ("graphs", lambda: graphs_phase(port, kernels, smi, sig, stream_sig)),
+            ("trace", lambda: trace_phase(port, kernels, smi, sig, stream_sig))):
+        by_path.update(run())
+        lap(part)
+    emit({"phase": "seconds", "build": build_s, **seconds,
+          "total_after_build": sum(seconds.values())})
 
-    def summary(key, prefix, main_check, stack_check):
-        """Launches of every path; times and bound at the main path's
-        shape and for a stack of 16 files in one launch; the largest error
-        of all checks."""
-        err = max(v["max_abs_err"] for k, v in checks.items() if k.startswith(prefix))
+    def summary(key, prefix, main_check, stack_check=None, wide=False):
+        """Launches of every path, counted under the kernel's own key;
+        times and bound at the main path's shape and for a stack of 16
+        files in one launch; the largest error of all checks (the wide
+        kernels': of the checks at range sizes over 16)."""
+        def is_wide(name):
+            return "wide" in name
+
+        err = max(v["max_abs_err"] for k, v in checks.items()
+                  if k.startswith(prefix) and is_wide(k) == wide)
+        paths = {name: p[key] for name, p in by_path.items() if p[key]}
         main = checks[main_check]
-        stack = checks[stack_check]
-        return {"stack16": {k: stack[k] for k in (
-                    "shape", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
-                    "single_launch_ms", "stack_over_singles")},
-                "launches": sum(p[key] for p in by_path.values()),
-                "launches_by_path": {name: p[key] for name, p in by_path.items()},
-                "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
-                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "bound_term": main["bound_term"], "share_of_bound": main["share_of_bound"],
-                "library_ms": None, "library_note": LIBRARY_NOTE, "card": smi}
+        out = {"launches": sum(paths.values()), "launches_by_path": paths,
+               "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+               "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+               "bound_term": main["bound_term"], "share_of_bound": main["share_of_bound"],
+               "library_ms": None, "library_note": LIBRARY_NOTE, "card": smi}
+        if stack_check:
+            out["stack16"] = {k: checks[stack_check][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                "single_launch_ms", "stack_over_singles")}
+        if wide:
+            out["by_range_size"] = {k: {f: checks[k][f] for f in (
+                "N", "shape", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")}
+                for k in checks if k.startswith(prefix) and is_wide(k)}
+        return out
 
     print(smi, flush=True)
     emit({"kernels": [
@@ -701,8 +784,16 @@ def main() -> int:
          "source": "fwav_tpu_torch/csrc/topc_scan.cu",
          "replaces": "fwav_tpu/ops/pallas_search.py:141",
          **summary("topc_scan", "k3_", "k3_damped", "k3_stack16_damped")},
+        {"name": "search_scan_wide (K1 at range sizes 17-255)", "route": "cuda",
+         "source": "fwav_tpu_torch/csrc/scan_wide.cuh",
+         "replaces": "fwav_tpu/ops/pallas_search.py:67",
+         **summary("search_scan_wide", "k1_", "k1_wide_n32", wide=True)},
+        {"name": "topc_scan_wide (K3 at range sizes 17-255)", "route": "cuda",
+         "source": "fwav_tpu_torch/csrc/scan_wide.cuh",
+         "replaces": "fwav_tpu/ops/pallas_search.py:141",
+         **summary("topc_scan_wide", "k3_", "k3_wide_n32", wide=True)},
     ]})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
 
@@ -837,6 +928,38 @@ def stream_kernel_checks(kernels, enc, dev, sig, checks):
             kernels, f"K2 shard 4 lobes {objective}", k2, plain_reps=3, plain_warmup=1)
 
 
+#: The wide kernels (fwav_tpu_torch/csrc/scan_wide.cuh) against their plain
+#: versions: (check, wrapper, range size, ranges, domains, objective) at the
+#: scans of the 10 s file's plans at tiles 4352, 8192 and 16384: the coarse
+#: grids of the staged refine (K1 one lobe, K3 the damped profile's four),
+#: the exact branch's whole bank at tile 16384, and K3 on that tile's coarse
+#: grid (search="coarse").
+WIDE_CHECKS = [("k1_wide_n17", "search_scan", 17, 28672, 896, "balanced"),
+               ("k3_wide_n17", "topc_scan", 17, 28672, 896, "damped"),
+               ("k1_wide_n32", "search_scan", 32, 14336, 448, "balanced"),
+               ("k3_wide_n32", "topc_scan", 32, 14336, 448, "damped"),
+               ("k1_wide_n64_exact", "search_scan", 64, 7168, 28672, "balanced"),
+               ("k3_wide_n64", "topc_scan", 64, 7168, 224, "damped")]
+
+
+def wide_kernel_checks(kernels, dev, checks):
+    """K1 and K3 at range sizes 17, 32 and 64 (WIDE_CHECKS) against their
+    plain versions: 0 differing rows and, for K1, 0 score error; timed,
+    with the bound of these inputs."""
+    slow = {"plain_reps": 3, "plain_warmup": 1}
+    for key, scan, N, M, D, objective in WIDE_CHECKS:
+        args = kernel_inputs(dev, 500 + N, M, D, objective, N=N)
+        if scan == "search_scan":
+            name = f"K1 wide N={N} {M} x {D} {objective}"
+            out = k1_check(kernels, name, args, objective == "damped", 8192, **slow)
+        else:
+            name = f"K3 wide N={N} {M} x {D} x 4 {objective}"
+            out = k3_check(kernels, name, args, 8192, **slow)
+        if out["idx_diff"] or (scan == "search_scan" and out["max_abs_err"]):
+            raise AssertionError(f"{name}: the kernel and its plain version differ: {out}")
+        checks[key] = {**out, "N": N}
+
+
 def staged_kernel_checks(port, kernels, enc, dev, checks):
     """K1 (balanced: one lobe) and K3 (damped: four) at the shapes the
     staged single-shot paths of STAGED give them: the bucketed ranges x the
@@ -956,6 +1079,7 @@ def mesh_kernel_checks(kernels, enc, dev, sig, stream_sig, checks):
                                                            *geo)])
     check = {**check, "shape": [*lobes.shape, int(means_ext.shape[1])],
              **stack_refine_bound(lobes, 4, int(means_ext.shape[1]), "balanced", 128)}
+    n_valid = device_counts(n_valid, dev)
     zero("k2_mesh_packed_share", timed(
         check, lambda: kernels.refine_window(means_ext, lobes, ranges, n_valid, *geo),
         lambda: kernels.refine_window_ref(means_ext, lobes, ranges, n_valid, *geo),
@@ -1234,11 +1358,12 @@ def stack_kernel_checks(kernels, enc, dev, sig, checks):
             raise AssertionError(f"{name}: scores differ from the plain version: {check}")
         check = {**check, "shape": [*lobes.shape, L],
                  **stack_refine_bound(lobes, 4, L, objective, stride)}
+        nv = device_counts(n_valid, dev)
         checks[key] = stack_numbers(
             check, name,
-            lambda: kernels.refine_window(means_ext, lobes, ranges, n_valid, *geo),
-            lambda: kernels.refine_window(means_ext[0], lobes[0], ranges[0], n_valid[0], *geo),
-            lambda: kernels.refine_window_ref(means_ext, lobes, ranges, n_valid, *geo),
+            lambda: kernels.refine_window(means_ext, lobes, ranges, nv, *geo),
+            lambda: kernels.refine_window(means_ext[0], lobes[0], ranges[0], nv[:1], *geo),
+            lambda: kernels.refine_window_ref(means_ext, lobes, ranges, nv, *geo),
             timer=graph_ms, **slow)
         table = kernels.window_stats(means_ext, 4, block_len, objective)
         if not torch.equal(table, kernels.window_stats_ref(means_ext, 4, block_len, objective)):
@@ -1285,6 +1410,10 @@ USER_RANGES = ("stream.", "phase.")
 #: and memsets. Each record of that work carries its call's correlation id.
 DEVICE_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cuMemcpy",
                 "cudaMemset", "cuMemset")
+#: A replayed program's one host call (fwav_tpu_torch/models/program.py):
+#: every kernel, copy and memset node of the graph leaves a record with its
+#: correlation id, so it counts as that many calls.
+GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
 
 #: Seconds for which `padded` keeps the card working (a one-element add and
 #: a sync every PROFILE_PROBE_S) before the profiled block. On the card the
@@ -1323,34 +1452,78 @@ def device_events(prof):
             if e.device_type == DeviceType.CUDA and not e.name.startswith(USER_RANGES)]
 
 
-def device_work(prof, since_ns):
+def program_replays():
+    """(programs captured so far, {key: (replays, work nodes)}) of the
+    process's program cache (fwav_tpu_torch/models/program.py): the work
+    nodes are a graph's kernel, copy and memset nodes."""
+    from fwav_tpu_torch.models.program import PROGRAMS
+
+    st = PROGRAMS.stats()
+    return st["captures"], {
+        repr(p["key"]): (p["replays"], sum(p["nodes"].get(k, 0)
+                                           for k in ("kernel", "copy", "memset")))
+        for p in st["programs"]}
+
+
+@contextlib.contextmanager
+def counted_replays():
+    """Yields a dict that receives, after the block, the graph launches the
+    block made ("launches") and the records they owe ("nodes"); raises if a
+    program was captured inside it (a capture's calls leave no record:
+    warm every program before a profiled block)."""
+    caps0, before = program_replays()
+    out = {}
+    yield out
+    caps1, after = program_replays()
+    if caps1 != caps0:
+        raise AssertionError("a program was captured inside a profiled block")
+    delta = {k: r - before.get(k, (0, 0))[0] for k, (r, _) in after.items()}
+    out["launches"] = sum(delta.values())
+    out["nodes"] = sum(d * after[k][1] for k, d in delta.items())
+
+
+def device_work(prof, since_ns, graphs=None):
     """The card's work that host calls made from `since_ns` on put in a
     torch.profiler trace, found by correlation id: (its records, the
-    annotations of USER_RANGES left out; the count of those calls; the count
-    of them that left no record, which the profiler lost)."""
+    annotations of USER_RANGES left out; the count of those calls, a graph
+    launch counting as its graph's work nodes; the count of them that left
+    no record, which the profiler lost). `graphs` is counted_replays' dict
+    of the block; the trace must show as many graph launches."""
     from torch.autograd import DeviceType
 
+    graphs = graphs or {"launches": 0, "nodes": 0}
     events = list(prof.profiler.kineto_results.events())
-    calls = {e.correlation_id() for e in events
-             if e.device_type() != DeviceType.CUDA and e.name().startswith(DEVICE_CALLS)
-             and e.start_ns() >= since_ns}
+    host = [e for e in events if e.device_type() != DeviceType.CUDA
+            and e.name().startswith(DEVICE_CALLS + GRAPH_LAUNCHES) and e.start_ns() >= since_ns]
+    launched = {e.correlation_id() for e in host if e.name().startswith(GRAPH_LAUNCHES)}
+    if len(launched) != graphs["launches"]:
+        raise AssertionError(f"the trace shows {len(launched)} graph launches, the program "
+                             f"cache {graphs['launches']} replays")
+    calls = {e.correlation_id() for e in host}
     recs = [e for e in events if e.device_type() == DeviceType.CUDA
             and e.correlation_id() in calls and not e.name().startswith(USER_RANGES)]
-    return recs, len(calls), len(calls - {e.correlation_id() for e in recs})
+    plain = calls - launched
+    from_graphs = sum(e.correlation_id() in launched for e in recs)
+    lost = len(plain - {e.correlation_id() for e in recs}) + graphs["nodes"] - from_graphs
+    return recs, len(plain) + graphs["nodes"], lost
 
 
 def busy_ms(fn):
     """fn() under torch.profiler (padded): (its result, the card's busy
     time as the summed durations of fn's kernels, copies and memsets in ms,
     host-clock seconds, the count of those records, the count of fn's host
-    calls that put work on the card, the count of those the profiler lost)."""
+    calls that put work on the card (a replayed program's graph launch
+    counting as its graph's work nodes), the count of those the profiler
+    lost)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with padded(profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])) as (prof, ns):
-        t0 = time.perf_counter()
-        res = fn()
-        wall = time.perf_counter() - t0
-    recs, calls, lost = device_work(prof, ns)
+    with counted_replays() as graphs:
+        with padded(profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])) as (
+                prof, ns):
+            t0 = time.perf_counter()
+            res = fn()
+            wall = time.perf_counter() - t0
+    recs, calls, lost = device_work(prof, ns, graphs)
     return res, sum(e.duration_ns() for e in recs) / 1e6, wall, len(recs), calls, lost
 
 
@@ -1387,11 +1560,11 @@ def packed_phase(port, kernels, enc, smi):
         packed = port.compress_audio_packed(sigs, 44100, 2, device="cuda", **kw)
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**20
-        other = "topc_scan" if scan == "search_scan" else "search_scan"
         k2 = stacks if plan[2] == "window" else 0
         if (plan[2] == "staged") != (phase == "packed_staged"):
             raise AssertionError(f"{phase}: the plan is {plan}")
-        want = {scan: stacks, other: 0, "refine_window": k2, "window_stats": k2}
+        want = {**dict.fromkeys(launches, 0), scan: stacks, "refine_window": k2,
+                "window_stats": k2}
         if launches != want:
             raise AssertionError(f"{phase}: launches {launches}, expected one of each kernel "
                                  f"per stack: {want}")
@@ -1486,6 +1659,301 @@ def staged_phase(port, kernels, smi):
     return out
 
 
+def wide_phase(port, kernels, smi, sig):
+    """The 10 s file at tiles 8192 and 16384 (range sizes 32 and 64, which
+    K1 and K3 scan with their wide kernels), held to the JAX CPU run's
+    numbers (WIDE); then `compress --tile 8192` and `--tile 16384` through
+    the CLI (the API's bytes) and back. Returns the launch counts per case."""
+    import numpy as np
+    import torch
+
+    from fwav_tpu_torch.models import encode as enc
+
+    out, report = {}, {"phase": "wide_tiles", "card": smi}
+    api = {}
+    for name, case in WIDE.items():
+        kw = case["kw"]
+        cfg = port.EncoderConfig(**kw)
+        _, _, _, lb, db = enc._prep_signal(sig, cfg)
+        plan = list(enc._plan_search(cfg, lb // cfg.range_size, db))
+        if plan != case["plan"]:
+            raise AssertionError(f"wide {name}: the plan is {plan}")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
+        first_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        scan = "topc_scan_wide" if kw.get("objective") == "damped" else "search_scan_wide"
+        want = {**dict.fromkeys(launches, 0), scan: 1}
+        if launches != want:
+            raise AssertionError(f"wide {name}: launches {launches}, expected {want}")
+        rec, bank, n_ranges, rs, *_, olen = res
+        sentinels = int((rec["idx"] < 0).sum())
+        if n_ranges != case["n_ranges"] or sentinels != case["sentinels"]:
+            raise AssertionError(f"wide {name}: {sentinels} sentinels in {n_ranges} ranges")
+        recon = port.decompress_audio(rec, bank, n_ranges, rs, original_len=olen,
+                                      device="cuda", **case["decode"])
+        snr = port.compute_snr(sig, recon)
+        if not np.isfinite(recon).all() or abs(snr - case["snr_db"]) > SNR_TOL_DB:
+            raise AssertionError(f"wide {name}: SNR {snr} dB, expected {case['snr_db']}")
+        t0 = time.perf_counter()
+        again = port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
+        enc_s = time.perf_counter() - t0
+        if not same_result(res, again):
+            raise AssertionError(f"wide {name}: a second encode differs from the first")
+        if not kw.get("objective"):
+            api[kw["tile_size"]] = port.prune_bank(rec, bank), res
+        out[f"wide_{name}"] = launches
+        report[name] = {"config": kw, "plan": plan, "n_ranges": n_ranges,
+                        "sentinels": sentinels, "snr_db": snr,
+                        "snr_db_jax_cpu": case["snr_db"], "launches": launches,
+                        "encode_s_first": first_s, "encode_s_second": enc_s,
+                        "x_realtime": 10.0 / enc_s,
+                        "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        wav = d / "bench10.wav"
+        port.write_wav(wav, sig, 44100, 2)
+        for tile, ((prec, pbank), res) in api.items():
+            path, mine = d / f"t{tile}.fwav", d / f"api{tile}.fwav"
+            launches, wall, _, _ = cli_call(kernels, ["compress", wav, path, "--tile", tile])
+            need(f"cli --tile {tile}", launches, {"search_scan_wide": 1})
+            port.save_compressed(mine, prec, pbank, res[3], 44100, 2, *res[4:])
+            if path.read_bytes() != mine.read_bytes():
+                raise AssertionError(f"cli --tile {tile}: the file differs from the API's")
+            cli_call(kernels, ["decompress", path, "--out", d / f"r{tile}.wav"])
+            snr = json.loads(cli_call(kernels, ["snr", wav, d / f"r{tile}.wav"])[2])["snr_db"]
+            name = "tile8192_balanced" if tile == 8192 else "tile16384_exact"
+            if abs(snr - WIDE[name]["snr_db"]) > SNR_TOL_DB:
+                raise AssertionError(f"cli --tile {tile}: SNR {snr} dB")
+            out[f"wide_cli_tile{tile}"] = launches
+            report[f"cli_tile{tile}"] = {"compress_wall_s": wall, "launches": launches,
+                                         "snr_db": snr, "bytes": path.stat().st_size}
+    emit(report)
+    return out
+
+
+#: Calls of each captured path timed eager and replayed, in turns.
+GRAPH_TIMED_CALLS = 12
+
+
+@contextlib.contextmanager
+def eager_programs():
+    """Every device program of fwav_tpu_torch runs eagerly inside the block,
+    as before the capture (models/encode.py _captured patched to say no):
+    the yardstick of the graphs phase. The package itself has no such
+    switch."""
+    from fwav_tpu_torch.models import encode as enc
+    from fwav_tpu_torch.models import stream
+
+    saved = enc._captured
+    enc._captured = stream._captured = lambda *a: False
+    try:
+        yield
+    finally:
+        enc._captured = stream._captured = saved
+
+
+#: Each kernel's launch key (ops/kernels.py LAUNCHES) by the name of its
+#: CUDA function: a trace names a kernel that a replayed graph ran.
+KERNEL_KEYS = (("search_scan_wide_kernel", "search_scan_wide"),
+               ("search_scan_kernel", "search_scan"),
+               ("topc_scan_wide_kernel", "topc_scan_wide"),
+               ("topc_scan_kernel", "topc_scan"),
+               ("refine_window_kernel", "refine_window"),
+               ("window_stats_kernel", "window_stats"))
+
+
+def traced_kernels(fn):
+    """fn() under torch.profiler (padded): {launch key: the kernels of
+    that name the card ran for fn} and the count of fn's device records
+    the profiler lost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with counted_replays() as graphs:
+        with padded(profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])) as (
+                prof, ns):
+            fn()
+    recs, _, lost = device_work(prof, ns, graphs)
+    names = [e.name() for e in recs]
+    return {key: sum(kname in n for n in names) for kname, key in KERNEL_KEYS}, lost
+
+
+def graphs_phase(port, kernels, smi, sig, stream_sig):
+    """The captured programs (fwav_tpu_torch/models/program.py) against the
+    eager runs of the same calls: every captured path's replayed records
+    byte-equal to its eager records, with the eager launch counts, and a
+    profiled replay naming on the card each kernel those counts name; the
+    main paths' sentinels and SNR; two lengths of one bucket through one
+    capture (a key's first call eager, its second captured); two threads
+    replaying one key in turns, each with its own records; the enqueue
+    (device less d2h, or the stream's dispatch) eager and replayed; each
+    program's capture time, nodes and pool bytes. Returns the launch
+    counts of the replayed paths."""
+    import threading
+
+    import numpy as np
+
+    from fwav_tpu_torch.models.program import PROGRAMS
+    from fwav_tpu_torch.utils import collect_phases
+
+    out, report = {}, {"phase": "graphs", "card": smi}
+    ten = packed_signals(10.0, PACK_FILES)
+    clips = packed_signals(0.5, PACK_FILES, seed0=200)
+
+    def single(s, **kw):
+        return lambda: port.compress_audio_arrays(s, 44100, 2, device="cuda", **kw)
+
+    def packed(sigs):
+        return lambda: port.compress_audio_packed(sigs, 44100, 2, device="cuda")
+
+    def streamed(**kw):
+        return lambda: port.compress_audio_streaming(stream_sig, 44100, 2, device="cuda",
+                                                     **kw)
+
+    cases = [("single_default", single(sig), "single"),
+             ("single_damped", single(sig, objective="damped"), "single"),
+             ("single_exact_clip", single(clips[0]), "single"),
+             ("packed_10s", packed(ten), "packed"),
+             ("packed_clips", packed(clips), "packed"),
+             ("stream_balanced", streamed(), "stream"),
+             ("stream_damped", streamed(objective="damped"), "stream")]
+    for name, fn, kind in cases:
+        with eager_programs():
+            kernels.reset_launch_counts()
+            eager = fn()
+            eager_launches = dict(kernels.LAUNCHES)
+        for _ in range(2):
+            fn()  # a new key: runs eagerly, then captures
+        before = PROGRAMS.stats()
+        kernels.reset_launch_counts()
+        replayed = fn()
+        launches = dict(kernels.LAUNCHES)
+        after = PROGRAMS.stats()
+        if after["captures"] != before["captures"] or after["replays"] <= before["replays"]:
+            raise AssertionError(f"graphs {name}: no replay ({before} -> {after})")
+        results = zip(eager, replayed) if kind == "packed" else [(eager, replayed)]
+        if not all(same_result(a, b) for a, b in results):
+            raise AssertionError(f"graphs {name}: the replayed records differ from the eager")
+        if launches != eager_launches:
+            raise AssertionError(f"graphs {name}: launches {launches}, eager {eager_launches}")
+        for _ in range(2):  # again if the profiler lost a record
+            traced, lost = traced_kernels(fn)
+            if not lost:
+                break
+        want = {k: launches[k] for _, k in KERNEL_KEYS}
+        if lost or traced != want:
+            raise AssertionError(f"graphs {name}: the card ran kernels {traced} ({lost} records "
+                                 f"lost), the counts say {want}")
+        out[f"graphs_{name}"] = launches
+        report[name] = {"launches": launches, "traced_kernels": traced,
+                        "replays": after["replays"] - before["replays"]}
+        if name == "single_default":
+            rec = replayed[0]
+            recon = port.decompress_audio(rec, replayed[1], replayed[2], replayed[3],
+                                          original_len=replayed[7], device="cuda")
+            snr = port.compute_snr(sig, recon)
+            if int((rec["idx"] < 0).sum()) != SLICE_SENTINELS or abs(
+                    snr - SLICE_SNR_DB) > SNR_TOL_DB:
+                raise AssertionError(f"graphs {name}: SNR {snr} dB")
+            report[name]["snr_db"] = snr
+        if name == "single_damped":
+            rec = replayed[0]
+            recon = port.decompress_audio(rec, replayed[1], replayed[2], replayed[3],
+                                          original_len=replayed[7], s_damping=0.25,
+                                          device="cuda")
+            snr = port.compute_snr(sig, recon)
+            if int((rec["idx"] < 0).sum()) != DAMPED_SENTINELS or abs(
+                    snr - DAMPED_RECORDS_SNR_DB) > SNR_TOL_DB:
+                raise AssertionError(f"graphs {name}: SNR {snr} dB")
+            report[name]["records_snr_db"] = snr
+        if kind == "stream" and int((replayed[0]["idx"] < 0).sum()) != STREAM_SENTINELS:
+            raise AssertionError(f"graphs {name}: the sentinels differ")
+
+    # the enqueue, eager and replayed in turns (host clock)
+    def enqueue_ms(fn):
+        with collect_phases() as ph:
+            fn()
+        return (ph["device"] - ph["d2h"]) * 1e3
+
+    def dispatch_ms(kw):
+        stats = {}
+        port.compress_audio_streaming(stream_sig, 44100, 2, device="cuda", stats=stats, **kw)
+        return sum(sh["h2d_ms"] + sh["enqueue_ms"] for sh in stats["shards"])
+
+    timing = {}
+    for name, fn, reps in (("single_default", single(sig), GRAPH_TIMED_CALLS),
+                           ("single_damped", single(sig, objective="damped"),
+                            GRAPH_TIMED_CALLS),
+                           ("packed_10s", packed(ten), 3)):
+        e, r = [], []
+        for _ in range(reps):
+            with eager_programs():
+                e.append(enqueue_ms(fn))
+            r.append(enqueue_ms(fn))
+        timing[name] = {"eager_enqueue_ms_median": statistics.median(e),
+                        "replay_enqueue_ms_median": statistics.median(r), "calls": reps}
+    for name, kw in (("stream_balanced", {}), ("stream_damped", {"objective": "damped"})):
+        e, r = [], []
+        for _ in range(3):
+            with eager_programs():
+                e.append(dispatch_ms(kw))
+            r.append(dispatch_ms(kw))
+        timing[name] = {"eager_dispatch_ms_median": statistics.median(e),
+                        "replay_dispatch_ms_median": statistics.median(r), "shards": 5}
+    report["enqueue"] = timing
+
+    # two lengths of one bucket: one capture, each file its own records
+    other = sig[:-3000]
+    with eager_programs():
+        want = [port.compress_audio_arrays(s, 44100, 2, device="cuda") for s in (sig, other)]
+    PROGRAMS.clear()
+    got, walls = [], []
+    for s in (sig, other, sig, other):
+        t0 = time.perf_counter()
+        got.append(port.compress_audio_arrays(s, 44100, 2, device="cuda"))
+        walls.append(time.perf_counter() - t0)
+    st = PROGRAMS.stats(memory=True)
+    if (st["first_calls"], st["captures"], st["replays"]) != (1, 1, 2):
+        raise AssertionError(f"graphs: two lengths of one bucket took {st}")
+    if not all(same_result(a, b) for a, b in zip(got, want + want)):
+        raise AssertionError("graphs: a length of the bucket lost its own records")
+    prog = st["programs"][0]
+    report["one_bucket"] = {"lengths": [len(sig), len(other)], "first_calls": 1,
+                            "captures": 1, "first_call_wall_s": walls[0],
+                            "capture_call_wall_s": walls[1], "replay_wall_s": walls[2:],
+                            **prog, "key": repr(prog["key"])}
+
+    # two threads replaying one key in turns, each with its own records
+    results = {0: [], 1: []}
+
+    def worker(k, s):
+        for _ in range(6):
+            results[k].append(port.compress_audio_arrays(s, 44100, 2, device="cuda"))
+
+    threads = [threading.Thread(target=worker, args=(k, s)) for k, s in enumerate((sig, other))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for k in (0, 1):
+        if len(results[k]) != 6 or not all(same_result(r, want[k]) for r in results[k]):
+            raise AssertionError(f"graphs: thread {k} got another thread's records")
+    report["threads"] = {"threads": 2, "calls_each": 6, "all_own_records": True}
+
+    # every program held now: capture time, nodes, pool
+    for name, fn, _ in cases:
+        for _ in range(2):
+            fn()
+    st = PROGRAMS.stats(memory=True)
+    report["programs"] = [{**p, "key": repr(p["key"])} for p in st["programs"]]
+    report["cache"] = {k: st[k] for k in ("capacity", "entries", "first_calls", "captures",
+                                          "replays", "evictions")}
+    emit(report)
+    return out
+
+
 def stereo_pair():
     """Ten seconds of stereo: a packed_signals file left, 0.7 of it plus
     0.3 of another right."""
@@ -1541,7 +2009,8 @@ def multichannel_phase(port, kernels, smi):
         gpu = pipeline("cuda", tmp)
         cpu = pipeline("cpu", tmp)
     enc_res, launches, loaded, hint, recon, snr, stats, size, _ = gpu
-    if launches != {"search_scan": 0, "topc_scan": 1, "refine_window": 1, "window_stats": 1}:
+    if launches != {**dict.fromkeys(launches, 0), "topc_scan": 1, "refine_window": 1,
+                    "window_stats": 1}:
         raise AssertionError(f"multichannel: both channels are one stack, launches {launches}")
     if not np.isfinite(recon).all() or recon.shape != stereo.shape:
         raise AssertionError("multichannel: the decode is not finite or has the wrong shape")
@@ -1766,7 +2235,8 @@ def cli_phase(port, kernels, smi, sig, stream_sig, api_files):
         launches = call("compress --batch --packed", ["compress", batch, "--batch", "--packed",
                                                       "--out", d / "packed"],
                         10.0 * PACK_FILES + 7.0)[0]
-        want = {"search_scan": 2, "topc_scan": 0, "refine_window": 2, "window_stats": 2}
+        want = {**dict.fromkeys(launches, 0), "search_scan": 2, "refine_window": 2,
+                "window_stats": 2}
         if launches != want:
             raise AssertionError(f"cli packed: launches {launches}, one of each kernel per "
                                  f"stack: {want}")
@@ -2195,14 +2665,15 @@ def trace_phase(port, kernels, smi, sig, stream_sig):
 
     # a profiler trace of the default encode: every phase range, K1, K2
     with tempfile.TemporaryDirectory() as tmp:
-        with collect_phases() as ph, padded(torch_profile(tmp)) as (prof, ns):
-            port.compress_audio_arrays(sig, 44100, 2, device="cuda")
+        with counted_replays() as graphs:
+            with collect_phases() as ph, padded(torch_profile(tmp)) as (prof, ns):
+                port.compress_audio_arrays(sig, 44100, 2, device="cuda")
         files = list(Path(tmp).glob("*.json"))
         if len(files) != 1:
             raise AssertionError(f"trace: torch_profile wrote {files}")
         trace_bytes = files[0].stat().st_size
     names = {e.name for e in prof.events()}
-    recs, _, lost = device_work(prof, ns)
+    recs, _, lost = device_work(prof, ns, graphs)
     kernel_names = {e.name() for e in recs}
     missing = [f"phase.{k}" for k in TRACE_KEYS["default"] if f"phase.{k}" not in names]
     for kname in ("search_scan_kernel", "refine_window_kernel", "window_stats_kernel"):
@@ -2212,7 +2683,8 @@ def trace_phase(port, kernels, smi, sig, stream_sig):
         raise AssertionError(f"trace: the profiler trace lacks {missing}")
     report["profile"] = {"trace_file_bytes": trace_bytes, "phases_ms": _phase_ms(ph),
                          "busy_ms": sum(e.duration_ns() for e in recs) / 1e6,
-                         "device_events": len(recs), "records_lost": lost}
+                         "device_events": len(recs), "records_lost": lost,
+                         "graph_launches": graphs["launches"], "graph_nodes": graphs["nodes"]}
 
     # busy_ms inside and outside a collector: the same work on the card, the
     # same records of it wherever the profiler lost none, and the ranges it

@@ -50,7 +50,7 @@
 // explicit round-to-nearest intrinsics in the TPU kernel's order, so both
 // kernels compute bit for bit what the plain PyTorch versions
 // (ops/kernels.py refine_window_ref, window_stats_ref) compute. A stack of
-// up to 16 files is one launch of each kernel (FileCounts below).
+// up to 16 files is one launch of each kernel (the stack below).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -60,18 +60,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kV = 4;        // neighbouring positions a lane scores per step
 constexpr int kG = 8;        // lanes that share a range
-constexpr int kMaxFiles = 16;  // files of one launch (a stack)
+constexpr int kMaxFiles = 16;  // files of one launch: a packed stack's bound
 
 // Both kernels take a stack of files: every array has a leading file axis
 // and blockIdx.y (the slowest grid axis) is the file. A block reads its own
 // file's rows only, and nothing else of it depends on the file, so a file's
 // result does not depend on the stack it is in; a single file is a stack of
-// one. The files of a stack share every size but n_valid, which rides the
-// launch arguments by value (a plain parameter: as __grid_constant__ it made
-// ptxas spill 8 bytes at N = 5, damped).
-struct FileCounts {
-  int n_valid[kMaxFiles];
-};
+// one. The files of a stack share every size but n_valid, which the kernel
+// reads from device memory, one int32 per file: a launch captured in a CUDA
+// graph then serves every length of its shape bucket, the counts being
+// copied into the graph's input before each replay.
 
 enum Objective { kBalanced = 0, kAffine = 1, kDamped = 2 };
 
@@ -190,11 +188,11 @@ __global__ void __launch_bounds__(kThreads) refine_window_kernel(
     const float* __restrict__ means, const float* __restrict__ stats, int L,
     const int* __restrict__ lobes, int C, int lobe_stride_b,
     int lobe_stride_m, int lobe_stride_c, const float* __restrict__ ranges,
-    int M, FileCounts counts, int stride, int block_len,
+    int M, const int* __restrict__ n_valid_of, int stride, int block_len,
     int W, float c, bool vec, float* __restrict__ out_score,
     int* __restrict__ out_idx) {
   const int file = blockIdx.y;
-  const int n_valid = counts.n_valid[file];
+  const int n_valid = n_valid_of[file];
   // the file's sequence and table start at index base of the stack's: the
   // offset rides the window's index, so both pointers stay launch arguments
   const int base = file * L;
@@ -287,7 +285,7 @@ int fwav_window_stats(const float* means_ext, int B, int L, int N, int block_len
 // fwav_window_stats wrote them for the same N, block_len and objective;
 // lobes int32, lobe `slot` of range m of file b at lobes[b * lobe_stride_b +
 // m * lobe_stride_m + slot * lobe_stride_c], C >= 1 slots; ranges (B, M, N)
-// float32 contiguous; n_valid B ints on the host, one per file. Writes
+// float32 contiguous; n_valid (B,) int32 on the device, one per file. Writes
 // score (B, M) float32 and idx (B, M) int32. Returns cudaGetLastError()
 // after the launch.
 int fwav_refine_window(const float* means_ext, const float* stats, int B, int L,
@@ -302,8 +300,6 @@ int fwav_refine_window(const float* means_ext, const float* stats, int B, int L,
       static_cast<long long>(B) * L + stride + stride / 4 + N * block_len > 0x7fffffffLL ||
       static_cast<long long>(B) * M > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  FileCounts counts{};
-  for (int b = 0; b < B; ++b) counts.n_valid[b] = n_valid[b];
   // 16-byte loads: every window and every tap starts on a multiple of kV
   const int W = stride + stride / 4;
   const bool vec =
@@ -318,7 +314,7 @@ int fwav_refine_window(const float* means_ext, const float* stats, int B, int L,
     refine_window_kernel<K, OBJ><<<blocks, kThreads, 0, st>>>(             \
         means_ext, stats, L, lobes, C, static_cast<int>(lobe_stride_b),    \
         lobe_stride_m,                                                     \
-        lobe_stride_c, ranges, M, counts, stride, block_len, W, s_clip,    \
+        lobe_stride_c, ranges, M, n_valid, stride, block_len, W, s_clip,    \
         vec, score, idx);                                                  \
     break;
 #define FWAV_CASE(K)                                                       \

@@ -27,8 +27,12 @@
 //     their merge stay inside a file.
 // Fragment layout: A rows 0-7 = 8 ranges, rows 8-15 = the same reversed,
 // so c0, c1 = num_o and c2, c3 = num_m of range g for domains 2t, 2t+1.
+// Range sizes of 17 to 255 taps take search_scan_wide_kernel instead
+// (scan_wide.cuh: exact float32 for every pair, the same keep policy and
+// the same split and merge).
 
 #include "scan_tile.cuh"
+#include "scan_wide.cuh"
 
 namespace {
 
@@ -106,6 +110,47 @@ __global__ void __launch_bounds__(fwav::Warp<N, 1>::kThreads,
   }
 }
 
+// The wide scan (N of 17 to 255, a runtime value): 32 ranges a block, every
+// pair in exact float32 (scan_wide.cuh), each warp's running best over its
+// slice of every tile, then the 4 warps' bests of a range merged by (score
+// descending, index ascending). Grid and outputs as search_scan_kernel's.
+template <bool kClip>
+__global__ void __launch_bounds__(fwav::kWideThreads)
+    search_scan_wide_kernel(ScanArgs stack, int N, int d_per_split,
+                            float* __restrict__ out_score, int* __restrict__ out_idx) {
+  extern __shared__ float4 wide_smem[];
+  __shared__ float part_s[fwav::kWideWarps][32];
+  __shared__ int part_i[fwav::kWideWarps][32];
+  const ScanArgs a = fwav::wide_file_args(stack, blockIdx.z, N);
+  const size_t out0 = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * a.M;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d0 = blockIdx.y * d_per_split;
+  const int d1 = min(a.D, d0 + d_per_split);
+
+  ArgmaxKeep<1, kClip> keep;
+  keep.c = a.c;
+  keep.best[0] = -CUDART_INF_F;
+  keep.best_i[0] = 0;
+  fwav::wide_scan<kClip>(reinterpret_cast<float*>(wide_smem), a, N, d0, d1, keep);
+  part_s[warp][lane] = keep.best[0];
+  part_i[warp][lane] = keep.best_i[0];
+  __syncthreads();
+  if (warp != 0) return;
+  float s = part_s[0][lane];
+  int i = part_i[0][lane];
+  for (int w = 1; w < fwav::kWideWarps; ++w) {
+    if (fwav::beats(part_s[w][lane], part_i[w][lane], s, i)) {
+      s = part_s[w][lane];
+      i = part_i[w][lane];
+    }
+  }
+  const int m = blockIdx.x * fwav::kWideLanes + lane;
+  if (m < a.M) {
+    out_score[out0 + m] = s;
+    out_idx[out0 + m] = i;
+  }
+}
+
 // Partial bests of the domain splits of file blockIdx.y, in split order: a
 // later split wins only on a strict >, so the lowest domain index still wins
 // ties.
@@ -145,6 +190,20 @@ void launch_scan(const ScanArgs& a, int B, int n_split, int d_per_split, float* 
                                                                out_idx);
 }
 
+template <bool kClip>
+int launch_wide(const ScanArgs& a, int B, int N, int n_split, int d_per_split,
+                float* out_score, int* out_idx, cudaStream_t stream) {
+  const dim3 grid((a.M + fwav::kWideLanes - 1) / fwav::kWideLanes, n_split, B);
+  const size_t smem = fwav::wide_smem_bytes(N);
+  const cudaError_t e = cudaFuncSetAttribute(
+      search_scan_wide_kernel<kClip>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  search_scan_wide_kernel<kClip><<<grid, fwav::kWideThreads, smem, stream>>>(
+      a, N, d_per_split, out_score, out_idx);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -153,9 +212,39 @@ const char* fwav_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The nodes of a captured CUDA graph (a cudaGraph_t) that put work on the
+// card, by kind: counts[0] kernels, [1] copies, [2] memsets, [3] any other
+// node. `nodes` is the caller's scratch of `capacity` handles; *total gets
+// the graph's node count, and a graph of more nodes than `capacity`
+// returns cudaErrorInvalidValue with nothing counted. Returns the first
+// error of the runtime calls, else 0.
+int fwav_graph_node_kinds(void* graph, void** nodes, long long capacity,
+                          long long* total, long long* counts) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes(g, nullptr, &n);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *total = static_cast<long long>(n);
+  if (static_cast<long long>(n) > capacity) return static_cast<int>(cudaErrorInvalidValue);
+  e = cudaGraphGetNodes(g, reinterpret_cast<cudaGraphNode_t*>(nodes), &n);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int k = 0; k < 4; ++k) counts[k] = 0;
+  for (size_t i = 0; i < n; ++i) {
+    cudaGraphNodeType type;
+    e = cudaGraphNodeGetType(static_cast<cudaGraphNode_t>(nodes[i]), &type);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    counts[type == cudaGraphNodeTypeKernel   ? 0
+           : type == cudaGraphNodeTypeMemcpy ? 1
+           : type == cudaGraphNodeTypeMemset ? 2
+                                             : 3] += 1;
+  }
+  return 0;
+}
+
 // A stack of B files: r_c (B, M, N), bankT (B, N, D), w (B, D), valid
 // (B, D), thresh (B, D) or null: float32 / int8, contiguous, on the device
-// of `stream`. d_per_split is a multiple of 128 (the staged tile). With
+// of `stream`; 4 <= N <= 255 (17 and up: the wide kernel). d_per_split is a
+// multiple of 128 (the staged tile). With
 // n_split > 1 the partial bests go to part_score/part_idx (B, n_split, M)
 // and a merge pass writes score/idx (B, M); with n_split == 1 the scan
 // writes them directly. Returns cudaGetLastError() after the launches.
@@ -179,8 +268,15 @@ int fwav_search_scan(const float* r_c, const float* bankT, const float* w,
     FWAV_CASE(9) FWAV_CASE(10) FWAV_CASE(11) FWAV_CASE(12) FWAV_CASE(13)
     FWAV_CASE(14) FWAV_CASE(15) FWAV_CASE(16)
 #undef FWAV_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    default: {
+      if (N < fwav::kWideMinN || N > fwav::kWideMaxN)
+        return static_cast<int>(cudaErrorInvalidValue);
+      const int code =
+          a.thresh != nullptr
+              ? launch_wide<true>(a, B, N, n_split, d_per_split, s_out, i_out, st)
+              : launch_wide<false>(a, B, N, n_split, d_per_split, s_out, i_out, st);
+      if (code != 0) return code;
+    }
   }
   if (n_split > 1) {
     merge_splits_kernel<<<dim3((M + 255) / 256, B), 256, 0, st>>>(part_score, part_idx, M,

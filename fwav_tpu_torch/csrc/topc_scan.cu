@@ -38,8 +38,12 @@
 //   * blockIdx.z is the file of a stack (scan_tile.cuh).
 // Fragment layout: A rows 0-7 = 8 ranges, rows 8-15 = the same reversed,
 // so c0, c1 = num_o and c2, c3 = num_m of range g for domains 2t, 2t+1.
+// Range sizes of 17 to 255 taps take topc_scan_wide_kernel instead
+// (scan_wide.cuh: exact float32 for every pair, the same lists and the same
+// sorted insertion).
 
 #include "scan_tile.cuh"
+#include "scan_wide.cuh"
 
 namespace {
 
@@ -155,6 +159,72 @@ __global__ void __launch_bounds__(fwav::Warp<N, C>::kThreads,
   }
 }
 
+// The wide scan (N of 17 to 255, a runtime value): 32 ranges a block, every
+// pair in exact float32 (scan_wide.cuh), each thread's sorted list over its
+// slice of every tile, then the other 3 warps' lists of a range inserted
+// into warp 0's by (score descending, index ascending). Output as
+// topc_scan_kernel's.
+template <int C, bool kClip>
+__global__ void __launch_bounds__(fwav::kWideThreads)
+    topc_scan_wide_kernel(ScanArgs stack, int N, int c_out, int* __restrict__ out_idx) {
+  extern __shared__ float4 wide_smem[];
+  __shared__ float part_s[fwav::kWideWarps][32][C];
+  __shared__ int part_i[fwav::kWideWarps][32][C];
+  const ScanArgs a = fwav::wide_file_args(stack, blockIdx.z, N);
+  out_idx += (size_t)blockIdx.z * c_out * a.M;  // (B, c_out, M)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  TopcKeep<1, C, kClip> keep;
+  keep.c = a.c;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    keep.bs[0][q] = -CUDART_INF_F;
+    keep.bi[0][q] = 0;
+  }
+  fwav::wide_scan<kClip>(reinterpret_cast<float*>(wide_smem), a, N, 0, a.D, keep);
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    part_s[warp][lane][q] = keep.bs[0][q];
+    part_i[warp][lane][q] = keep.bi[0][q];
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < fwav::kWideWarps; ++w) {
+#pragma unroll
+    for (int q = 0; q < C; ++q)
+      insert<C>(keep.bs[0], keep.bi[0], part_s[w][lane][q], part_i[w][lane][q], Beats());
+  }
+  const int m = blockIdx.x * fwav::kWideLanes + lane;
+  if (m < a.M) {
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      if (q < c_out)
+        out_idx[(size_t)q * a.M + m] = isfinite(keep.bs[0][q]) ? keep.bi[0][q] : -1;
+    }
+  }
+}
+
+template <int C, bool kClip>
+int launch_wide(const ScanArgs& a, int B, int N, int c_out, int* out_idx,
+                cudaStream_t stream) {
+  const dim3 grid((a.M + fwav::kWideLanes - 1) / fwav::kWideLanes, 1, B);
+  const size_t smem = fwav::wide_smem_bytes(N);
+  const cudaError_t e = cudaFuncSetAttribute(topc_scan_wide_kernel<C, kClip>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  topc_scan_wide_kernel<C, kClip><<<grid, fwav::kWideThreads, smem, stream>>>(a, N, c_out,
+                                                                               out_idx);
+  return 0;
+}
+
+template <int C>
+int launch_wide_clip(const ScanArgs& a, int B, int N, int c_out, int* out_idx,
+                     cudaStream_t stream) {
+  return a.thresh != nullptr ? launch_wide<C, true>(a, B, N, c_out, out_idx, stream)
+                             : launch_wide<C, false>(a, B, N, c_out, out_idx, stream);
+}
+
 template <int N, int C>
 void launch_topc(const ScanArgs& a, int B, int c_out, int* out_idx, cudaStream_t stream) {
   const dim3 grid((a.M + fwav::kRangesPerBlock - 1) / fwav::kRangesPerBlock, 1, B);
@@ -184,7 +254,8 @@ extern "C" {
 
 // A stack of B files: r_c (B, M, N), bankT (B, N, D), w (B, D), valid
 // (B, D), thresh (B, D) or null: float32 / int8, contiguous, on the device
-// of `stream`; 1 <= C <= 8. Writes out_idx (B, C, M) int32. Returns
+// of `stream`; 4 <= N <= 255 (17 and up: the wide kernel); 1 <= C <= 8.
+// Writes out_idx (B, C, M) int32. Returns
 // cudaGetLastError() after the launch.
 int fwav_topc_scan(const float* r_c, const float* bankT, const float* w,
                    const int8_t* valid, const float* thresh, float s_clip,
@@ -203,7 +274,11 @@ int fwav_topc_scan(const float* r_c, const float* bankT, const float* w,
     FWAV_CASE(14) FWAV_CASE(15) FWAV_CASE(16)
 #undef FWAV_CASE
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (N < fwav::kWideMinN || N > fwav::kWideMaxN || C > 8)
+        return static_cast<int>(cudaErrorInvalidValue);
+      code = C <= 2   ? launch_wide_clip<2>(a, B, N, C, out_idx, st)
+             : C <= 4 ? launch_wide_clip<4>(a, B, N, C, out_idx, st)
+                      : launch_wide_clip<8>(a, B, N, C, out_idx, st);
   }
   if (code != 0) return code;
   return static_cast<int>(cudaGetLastError());

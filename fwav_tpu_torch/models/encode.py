@@ -48,6 +48,14 @@ codes do not depend on its neighbours. The streaming encode
 the counterpart of the JAX core's mode="global" (the whole-file
 global-candidate pass: K3 nomination, then the staged window refine of
 ops/search.py).
+
+The counts of a file ride in a device `meta` tensor, one JAX `meta` row
+per file, so a program reads none of them on the host. On one card,
+under the plans "exact" and "coarse" with the window refine (`_captured`),
+the program of a shape key (`_core_key`, the JAX package's cache key) is
+captured once, on the key's second call, as a CUDA graph and replayed for
+every later call of that key, every length of the bucket
+(models/program.py), as the JAX package compiles one program per key.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from ..io.container import MATCH_DTYPE
 from ..ops.affine import affine_stats, batched_affine_match, refit_host, row_mean
 from ..ops.domains import box_sums, build_bank, build_domains_host, n_domains_for
 from ..ops.kernels import (
+    check_refine_lead,
     pallas_blocks_ok,
     refine_blocks_ok,
     refine_window,
@@ -83,6 +92,7 @@ from ..parallel.mesh import DP_AXIS, TP_AXIS, Mesh, as_mesh, fetch_global
 from ..utils.buckets import bucket, pad_to
 from ..utils.logging import device_banner
 from ..utils.trace import phase
+from .program import PROGRAMS
 
 #: One card, one queue: the device programs of concurrent callers (the
 #: CLI's batch threads) run one at a time under this lock, as in the JAX
@@ -141,6 +151,15 @@ def _pow2_divisor(n: int, cap: int) -> int:
     return p
 
 
+def _means_ext_len(n: int, block_len: int, stride: int, dc: int) -> int:
+    """Length of `_means_setup`'s means_ext for dc subsampled rows."""
+    W = stride + stride // 4
+    lane0 = stride - W // 2
+    ls = lane0 + (W - 1) + (n - 1) * block_len + 1
+    Lslice = -(-ls // 128) * 128
+    return -(-(stride + (dc - 1) * stride + Lslice) // 128) * 128
+
+
 def _means_setup(raw_norm, n: int, block_len: int, stride: int, dc: int):
     """The box-mean sequence in the layout K2 reads (`means_ext`: a
     stride-wide zero lead, then a zero tail) and the stride-subsampled bank
@@ -149,11 +168,7 @@ def _means_setup(raw_norm, n: int, block_len: int, stride: int, dc: int):
     gives (B, Lext) and (B, dc, n)."""
     means = box_sums(raw_norm, block_len) * (1.0 / block_len)
     lead = means.shape[:-1]
-    W = stride + stride // 4
-    lane0 = stride - W // 2
-    ls = lane0 + (W - 1) + (n - 1) * block_len + 1
-    Lslice = -(-ls // 128) * 128
-    Lext = -(-(stride + (dc - 1) * stride + Lslice) // 128) * 128
+    Lext = _means_ext_len(n, block_len, stride, dc)
     k = min(means.shape[-1], Lext - stride)
     means_ext = torch.cat([
         means.new_zeros((*lead, stride)), means[..., :k],
@@ -202,7 +217,10 @@ def _plan_search(cfg: EncoderConfig, mb: int, db: int):
     branch. One lobe takes K2 where pallas_blocks_ok and refine_blocks_ok
     hold; several lobes where refine_blocks_ok holds. K1 and K3 serve every
     geometry (the JAX package runs exact_search_block or gain_topk_scan, the
-    same selection rules, where its scan kernels' block gate fails)."""
+    same selection rules, where its scan kernels' block gate fails), every
+    range size included: from 17 taps (tiles from 4352) their wide kernels.
+    K2 takes range sizes up to 16 only, and never sees a wider one: such a
+    range comes with domain_step > 1, which refine_blocks_ok refuses."""
     n = cfg.range_size
     if cfg.objective not in ("balanced", "affine", "damped"):
         raise ValueError(f"unknown objective {cfg.objective!r}")
@@ -224,13 +242,60 @@ def _plan_search(cfg: EncoderConfig, mb: int, db: int):
     return search_mode, stride, "window" if window else "staged"
 
 
-def _stack_counts(dev, *per_file) -> torch.Tensor:
-    """Lists of one count per file -> a (len(per_file), B) int64 tensor on
-    `dev`, in one copy. A device program makes it first, beside the copy of
-    its raw samples and before it enqueues anything: a copy from the host
+def _stack_counts(*per_file) -> np.ndarray:
+    """Lists of one count per file -> the host side of a stack's `meta`:
+    (B, len(per_file)) int32, one JAX `meta` row per file ([n_samples,
+    n_ranges, n_domains] for raw files). It fills a device program's
+    static input (models/program.py) or is copied to the device beside the
+    raw samples, before the program enqueues anything: a copy from the host
     waits for the stream (ops/affine.py row_mean), so none is made later."""
-    return torch.tensor([[int(v) for v in row] for row in per_file],
-                        dtype=torch.int64).to(dev)
+    return np.array([[int(v) for v in row] for row in per_file], dtype=np.int32).T.copy()
+
+
+def _core_key(cfg: EncoderConfig, nb: int, lb: int, db: int, mode: str, in_i16: bool,
+              device, B: int = 1):
+    """The device program's cache key for one shape bucket: the JAX
+    package's _core_key (every static argument of its build_encode_core,
+    fwav_tpu/models/encode.py) without use_pallas, which the port has no
+    use for, then the device and the files per stack. The damped
+    objective's coarse scan keeps at least 4 lobes; mode "global" rides
+    the coarse slots with the global pass's stride and depth. The
+    single-shot, packed and streaming programs all take their key here."""
+    range_size = cfg.range_size
+    search_mode, stride = _resolve_search(cfg, range_size, db)
+    topc = cfg.coarse_topc
+    if cfg.objective == "damped" and search_mode == "coarse":
+        topc = max(topc, 4)
+    if mode == "global":
+        search_mode, stride, topc = "coarse", cfg.global_stride, cfg.global_topc
+    return (
+        nb, lb, db, cfg.tile_size, range_size, cfg.domain_step, search_mode,
+        cfg.top_k, cfg.emb_dim, cfg.fast_mode, cfg.s_clip, cfg.domain_block,
+        cfg.range_block, cfg.objective, stride, topc, mode, in_i16,
+        float(cfg.energy_thresh), str(torch.device(device)), int(B),
+    )
+
+
+def _captured(cfg: EncoderConfig, lb: int, db: int, mesh) -> bool:
+    """Whether a program runs as a captured graph (models/program.py): on
+    a one-cell mesh of a CUDA device of this process, under the plans
+    "exact" and "coarse" with the window refine. The staged refine, topk,
+    meshes of several cells and the global pass stay eager, by their plan."""
+    if mesh.size != 1 or mesh.multi_process or mesh.first_local_device().type != "cuda":
+        return False
+    mode, _, refine = _plan_search(cfg, lb // cfg.range_size, db)
+    return mode == "exact" or (mode == "coarse" and refine == "window")
+
+
+def _check_counts(cfg: EncoderConfig, lb: int, db: int, n_domains) -> None:
+    """The host-side size checks of a call, on its host counts, before its
+    program runs (eager or replayed): K2's (ops/kernels.py
+    check_refine_lead) on the box-mean sequence a coarse program builds."""
+    search_mode, stride = _resolve_search(cfg, cfg.range_size, db)
+    if search_mode == "coarse":
+        n = cfg.range_size
+        L = _means_ext_len(n, cfg.tile_size // n, stride, db // stride)
+        check_refine_lead(L, n_domains, stride)
 
 
 def _norm(raw):
@@ -282,11 +347,13 @@ def _topk_search(ranges, bank, valid, cfg: EncoderConfig):
     return torch.cat(idx), torch.cat(score)
 
 
-def _run_search(ranges, raw_norm, n_domains, nd, db: int, cfg: EncoderConfig,
-                search_mode: str, stride: int, refine):
+def _run_search(ranges, raw_norm, nd, db: int, cfg: EncoderConfig,
+                search_mode: str, stride: int, refine, n_domains=None):
     """(idx, score), each (B, M), of a stack: ranges (B, M, n), raw_norm
-    (B, nb), n_domains a list of B ints and nd the same on the device (B,).
-    K1 over the whole bank ("exact"),
+    (B, nb), nd the files' domain counts on the device (B,); n_domains,
+    the same as host ints, only for the staged refine, which sizes its
+    blocks by them (the other plans read nd alone, so that a captured
+    program bakes in no count). K1 over the whole bank ("exact"),
     or K1 (one lobe) or K3 (several) over the subsampled bank, then around
     every lobe K2 once (refine "window") or the staged refine over the full
     bank, file by file ("staged"). Each kernel is one launch per stack.
@@ -339,9 +406,11 @@ def _run_search(ranges, raw_norm, n_domains, nd, db: int, cfg: EncoderConfig,
         lobes = topc_scan(*scan_args, topc, thresh, cfg.s_clip)
     if refine == "window":
         # one launch walks every lobe of a range; the earlier lobe wins ties
+        # n_valid from device memory; the caller checked its host counts
+        # (_check_counts)
         r_score, r_idx = refine_window(
-            means_ext, lobes, ranges, n_domains, stride, block_len, cfg.objective,
-            cfg.s_clip,
+            means_ext, lobes, ranges, nd[:, 0].to(torch.int32).contiguous(), stride, block_len,
+            cfg.objective, cfg.s_clip,
         )
         return r_idx, r_score
     per_file = [
@@ -366,16 +435,19 @@ def _pack_out(ranges, idx, score, nr, inv, cfg: EncoderConfig, row0: int = 0):
     return pack3(torch.where(dead, IDX3_SENTINEL, idx).to(torch.int32))
 
 
-def _front_packed(raw, n_samples, n_ranges, n_domains, lb: int, cfg: EncoderConfig):
+def _front_packed(raw, meta, lb: int, cfg: EncoderConfig):
     """The part of the raw program before the search, over a stack: each
     file normalized, masked by the device VAD and cut into lb // range_size
-    ranges with its tail range reflect-padded. Returns (ranges (B, mb, n),
-    raw_norm (B, nb), nr, nd, inv), the last three (B,) on the device."""
+    ranges with its tail range reflect-padded. meta (B, 3) is one JAX
+    `meta` per file, [n_samples, n_ranges, n_domains], an integer tensor
+    on raw's device. Returns (ranges (B, mb, n), raw_norm (B, nb), nr, nd,
+    inv), the last three (B,) on the device."""
     n = cfg.range_size
     B, nb = raw.shape
     mb = lb // n
     dev = raw.device
-    ns, nr, nd = _stack_counts(dev, n_samples, n_ranges, n_domains)
+    meta = meta.to(torch.int64)
+    ns, nr, nd = meta[:, 0], meta[:, 1], meta[:, 2]
     rawf, inv = _norm(raw)
     mask = voiced_mask(rawf, ns, 2 * n, float(cfg.energy_thresh))
     weighted = rawf * (mask.to(torch.float32) * inv[:, None])
@@ -395,20 +467,27 @@ def _front_packed(raw, n_samples, n_ranges, n_domains, lb: int, cfg: EncoderConf
     return ranges, rawf * inv[:, None], nr, nd, inv
 
 
-def encode_core_packed(raw, n_samples, n_ranges, n_domains, lb: int, db: int,
-                       cfg: EncoderConfig):
+def _program_raw(raw, meta, lb: int, db: int, cfg: EncoderConfig, n_domains=None):
+    """The raw program of a stack on raw's device: (B, lb // range_size,
+    3) codes from raw (B, nb) and meta (B, 3) on the device, with nothing
+    of the counts on the host (n_domains, host ints, only where the plan
+    is the staged refine). What models/program.py captures."""
+    return _mesh_program(Mesh([[raw.device]]), lambda d: _front_packed(raw, meta, lb, cfg),
+                         lb, db, cfg, n_domains)[0]
+
+
+def encode_core_packed(raw, meta, lb: int, db: int, cfg: EncoderConfig):
     """The device program over a stack of same-bucket files on one device:
     raw (B, nb), the bucket-padded raw signals (int16 or float32, on the
-    device), and n_samples, n_ranges, n_domains, lists of B ints -> (B,
-    lb // range_size, 3) uint8 idx codes, IDX3_SENTINEL for energy-pruned,
-    padded and no-candidate ranges. Each file is normalized, masked, cut
-    into ranges and searched as it is alone; each kernel launches once for
-    the stack. `_mesh_program` on the one-cell mesh of raw's device."""
-    return _mesh_program(
-        Mesh([[raw.device]]),
-        lambda d: _front_packed(raw, n_samples, n_ranges, n_domains, lb, cfg),
-        n_domains, lb, db, cfg,
-    )[0]
+    device), meta (B, 3) int32 [n_samples, n_ranges, n_domains] per file
+    (host, as _stack_counts makes it) -> (B, lb // range_size, 3) uint8 idx
+    codes, IDX3_SENTINEL for energy-pruned, padded and no-candidate ranges.
+    Each file is normalized, masked, cut into ranges and searched as it is
+    alone; each kernel launches once for the stack. Eager: `_program_raw`
+    of meta copied to the device, after the host checks of _check_counts."""
+    n_domains = [int(v) for v in meta[:, 2]]
+    _check_counts(cfg, lb, db, n_domains)
+    return _program_raw(raw, torch.from_numpy(meta).to(raw.device), lb, db, cfg, n_domains)
 
 
 def encode_core(raw, n_samples: int, n_ranges: int, n_domains: int, lb: int,
@@ -416,8 +495,8 @@ def encode_core(raw, n_samples: int, n_ranges: int, n_domains: int, lb: int,
     """The device program of one file: bucket-padded raw signal (int16 or
     float32, on the device) -> (lb // range_size, 3) uint8 idx codes. The
     stack of one of encode_core_packed."""
-    return encode_core_packed(raw[None], [n_samples], [n_ranges], [n_domains], lb, db,
-                              cfg)[0]
+    return encode_core_packed(raw[None], _stack_counts([n_samples], [n_ranges], [n_domains]),
+                              lb, db, cfg)[0]
 
 
 def _mask_weighted(raw, mask_bytes):
@@ -435,19 +514,20 @@ def _front_masked(raw, mask_bytes, meta, lb: int, cfg: EncoderConfig):
     """The part of one streaming shard's program before the search (the
     JAX core's mode="masked", a stack of one window): the window's raw
     samples (int16 or float32, bucket-padded to nb, on the device), the
-    host VAD of the same samples as nb/8 packed bytes, and meta =
-    (n_window_samples, range_offset, n_ranges, n_domains) as ints. The
-    window is normalized by its own max|x|; the ranges are the lb weighted
-    samples at range_offset (the host reflect-pads the file's tail before
-    it cuts the windows); the bank is built from the unmasked window, so
-    the codes are window-local rows. Returns _front_packed's tuple."""
+    host VAD of the same samples as nb/8 packed bytes, and meta (4,) =
+    [n_window_samples, range_offset, n_ranges, n_domains], an integer
+    tensor on the device. The window is normalized by its own max|x|; the
+    ranges are the lb weighted samples at range_offset, clamped on the
+    device as lax.dynamic_slice clamps its start (the host reflect-pads the
+    file's tail before it cuts the windows); the bank is built from the
+    unmasked window, so the codes are window-local rows. Returns
+    _front_packed's tuple."""
     n = cfg.range_size
-    _, offset, n_ranges, n_domains = (int(v) for v in meta)
-    nr, nd = _stack_counts(raw.device, [n_ranges], [n_domains])
+    meta = meta.to(torch.int64)
     rawf, inv, weighted = _mask_weighted(raw, mask_bytes)
-    off = min(max(offset, 0), raw.shape[0] - lb)  # lax.dynamic_slice's clamp
-    ranges = weighted[off : off + lb].reshape(1, lb // n, n)
-    return ranges, (rawf * inv)[None], nr, nd, inv[None]
+    off = meta[1].clamp(0, raw.shape[0] - lb)
+    ranges = weighted[off + torch.arange(lb, device=raw.device)].reshape(1, lb // n, n)
+    return ranges, (rawf * inv)[None], meta[2:3], meta[3:4], inv[None]
 
 
 def encode_core_global(raw, mask_bytes, meta, local_rows, lb: int, db: int,
@@ -616,7 +696,7 @@ def _topk_tp(slabs, shards, cfg: EncoderConfig):
     return torch.cat(idx_out), torch.cat(score_out)
 
 
-def _mesh_program(mesh, front, n_domains, lb: int, db: int, cfg: EncoderConfig):
+def _mesh_program(mesh, front, lb: int, db: int, cfg: EncoderConfig, n_domains=None):
     """The device program of a stack over the (dp, tp) cells of `mesh` (the
     JAX core's `finish` and `pack_out`, with its dp/tp branches under
     shard_map; a one-cell mesh is the single-device program): the rows this
@@ -628,7 +708,9 @@ def _mesh_program(mesh, front, n_domains, lb: int, db: int, cfg: EncoderConfig):
     the sub-slab's shape; under "exact" and "topk" each cell scans its bank
     row shard and the row merges. The merge and the codes are on the row's
     first cell. Every cell's work is enqueued on its own device with no
-    copy to the host. Returns {row: (B, mloc, 3) uint8 codes}."""
+    copy to the host. n_domains, the files' domain counts as host ints, is
+    needed only by the staged refine. Returns {row: (B, mloc, 3) uint8
+    codes}."""
     n = cfg.range_size
     dp, tp = _mesh_dims(mesh)
     mloc = lb // n // dp
@@ -651,7 +733,7 @@ def _mesh_program(mesh, front, n_domains, lb: int, db: int, cfg: EncoderConfig):
         if split > 1:
             parts = [
                 _run_search(c[0][:, row0 + j * msub : row0 + (j + 1) * msub], c[1],
-                            n_domains, c[3], db, cfg, *plan)
+                            c[3], db, cfg, *plan, n_domains)
                 for j, c in enumerate(cells)
             ]
             idx = torch.cat([p[0].to(dev0) for p in parts], dim=1)
@@ -670,20 +752,20 @@ def _mesh_program(mesh, front, n_domains, lb: int, db: int, cfg: EncoderConfig):
                 idx = torch.stack([f[0] for f in per_file])
                 score = torch.stack([f[1] for f in per_file])
         else:
-            idx, score = _run_search(ranges0[:, row0 : row0 + mloc], raw_norm0, n_domains,
-                                     nd0, db, cfg, *plan)
+            idx, score = _run_search(ranges0[:, row0 : row0 + mloc], raw_norm0, nd0, db,
+                                     cfg, *plan, n_domains)
         out[i] = _pack_out(ranges0[:, row0 : row0 + mloc], idx, score, nr0, inv0, cfg, row0)
     return out
 
 
-def _packed_cells(raw_np, n_samples, n_ranges, n_domains, lb: int, db: int,
-                  cfg: EncoderConfig, mesh):
+def _packed_cells(raw_np, meta_np, lb: int, db: int, cfg: EncoderConfig, mesh):
     """A packed stack over every cell of `mesh` (the JAX package's
     _packed_sharded_core): the file axis, padded with copies of the last
     file to a multiple of the cell count, splits into contiguous groups of
     whole files, one per cell in flat (dp, tp) order, each encoded by the
-    single-device program on its cell. Returns {flat cell: (files, mb, 3)
-    codes} of the cells this process owns."""
+    single-device program on its cell. meta_np is the stack's (B, 3) meta.
+    Returns {flat cell: (files, mb, 3) codes} of the cells this process
+    owns."""
     B = raw_np.shape[0]
     per = -(-B // mesh.size)
     order = list(range(B)) + [B - 1] * (per * mesh.size - B)
@@ -691,11 +773,8 @@ def _packed_cells(raw_np, n_samples, n_ranges, n_domains, lb: int, db: int,
     out = {}
     for k in mesh.local_cells():
         sel = order[k * per : (k + 1) * per]
-        raw = raw_np if sel == list(range(B)) else raw_np[sel]
-        out[k] = encode_core_packed(
-            torch.from_numpy(raw).to(flat[k]), [n_samples[r] for r in sel],
-            [n_ranges[r] for r in sel], [n_domains[r] for r in sel], lb, db, cfg,
-        )
+        raw, meta = (raw_np, meta_np) if sel == list(range(B)) else (raw_np[sel], meta_np[sel])
+        out[k] = encode_core_packed(torch.from_numpy(raw).to(flat[k]), meta, lb, db, cfg)
     return out
 
 
@@ -771,25 +850,40 @@ def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
     """One stack of same-bucket files, each (signal, raw_p, n_ranges,
     n_domains) of _prep_signal: the device program over `mesh`, the
     idx-only transfer, the host refit. The ranges of the stack split over
-    the cells (_mesh_program), or with `by_file` its files (_packed_cells).
+    the cells (_mesh_program), or with `by_file` its files (_packed_cells);
+    on one card, where _captured says so, the program of its _core_key is
+    replayed instead (models/program.py), the counts in its `meta`.
     The host banks are built while the devices run (kernel launches return
     at once); one copy per cell brings the codes back. The enqueue of the
     whole program and the copies each hold DEVICE_LOCK. Returns one result
     per file."""
     n = cfg.range_size
     raw_np = np.stack([f[1] for f in files])
-    counts = ([len(f[0]) for f in files], [f[2] for f in files], [f[3] for f in files])
+    n_domains = [f[3] for f in files]
+    meta_np = _stack_counts([len(f[0]) for f in files], [f[2] for f in files], n_domains)
+    _check_counts(cfg, lb, db, n_domains)
     # the JAX package's phases: "device" from the enqueue to the codes on
     # the host, "d2h" from the end of the enqueue, "host_bank" inside it
     with phase("device"):
         with DEVICE_LOCK:
-            if by_file:
-                codes = _packed_cells(raw_np, *counts, lb, db, cfg, mesh)
+            if _captured(cfg, lb, db, mesh):
+                # one program per shape key, replayed (models/program.py)
+                dev = mesh.first_local_device()
+                key = _core_key(cfg, raw_np.shape[1], lb, db, "raw",
+                                raw_np.dtype == np.int16, dev, len(files))
+                out = PROGRAMS.load(
+                    key, dev, (raw_np, meta_np),
+                    lambda raw, meta: _program_raw(raw, meta, lb, db, cfg),
+                ).launch()
+                codes = {0: out if by_file else out.transpose(0, 1)}
+            elif by_file:
+                codes = _packed_cells(raw_np, meta_np, lb, db, cfg, mesh)
             else:  # dp slabs along the range axis, gathered along axis 0
                 raw = torch.from_numpy(raw_np).to(mesh.first_local_device())
+                meta = torch.from_numpy(meta_np).to(raw.device)
                 codes = _mesh_program(
-                    mesh, lambda d: _front_packed(raw.to(d), *counts, lb, cfg),
-                    counts[2], lb, db, cfg)
+                    mesh, lambda d: _front_packed(raw.to(d), meta.to(d), lb, cfg),
+                    lb, db, cfg, n_domains)
                 codes = {i: v.transpose(0, 1) for i, v in codes.items()}
         with phase("d2h"):
             with phase("host_bank"):

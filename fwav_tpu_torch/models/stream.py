@@ -13,7 +13,11 @@ orientation against the serialized bank rows.
 Every shard runs one device program (models/encode.py `_mesh_program`
 with the masked front, `_front_masked`) at one shape bucket planned once
 for the file, on one device or split over the cells of a (dp, tp) mesh
-(records bit-equal to the single-device stream's). For
+(records bit-equal to the single-device stream's). On one card, under the
+plans that models/encode.py `_captured` names, that program is captured
+once per shape key (at its second shard) and replayed for the later
+shards (models/program.py); the
+shard's counts ride in its device `meta`. For
 the damped objective a whole-file global-candidate pass
 (`encode_core_global`) then nominates remote windows for every range and
 replaces a shard-local winner only where a nominee strictly beats it; it
@@ -50,14 +54,18 @@ from ..io.container import MATCH_DTYPE
 from ..ops.affine import refit_host
 from ..ops.domains import bank_rows_host, n_domains_for
 from ..ops.vad import voiced_detection
-from ..parallel.mesh import as_mesh, fetch_global
+from ..parallel.mesh import Mesh, as_mesh, fetch_global
 from ..utils.buckets import bucket, pad_to
 from ..utils.logging import logger
 from ..utils.trace import add_phase
 from . import encode
+from .program import PROGRAMS
 from .encode import (
     DEVICE_LOCK,
     _as_i16_or_f32,
+    _captured,
+    _check_counts,
+    _core_key,
     _empty_result,
     _front_masked,
     _mesh_dims,
@@ -350,6 +358,15 @@ def compress_audio_streaming(
         lb = (pad_to(rbw, rsplit * 256) if rsplit > 1 else rbw) * n
         nbw = bucket(max(max(g[3] for g in live_geo), max(g[4] for g in live_geo) + lb),
                      4096)
+        captured = _captured(cfg, lb, db, mesh)
+        key = _core_key(cfg, nbw, lb, db, "masked", raw_src.dtype == np.int16, dev)
+
+        def shard_program(raw, mask, meta):
+            """The shard's program on one device, as models/program.py
+            captures it: (1, lb // n, 3) codes."""
+            return _mesh_program(Mesh([[raw.device]]),
+                                 lambda d: _front_masked(raw, mask, meta, lb, cfg),
+                                 lb, db, cfg)[0]
 
     for k, (a, b) in enumerate(bounds):
         if resume_dir and os.path.exists(_ckpt(k)):
@@ -377,17 +394,25 @@ def compress_audio_streaming(
         times = {"shard": k}
         raw_p, mask_bytes = _window_inputs(raw_src, voiced_p, g0, g0 + lenw, nbw)
         timer = _Timer(times, dev)
-        meta = (lenw, off, m, n_dom_w)
+        meta_np = np.array([lenw, off, m, n_dom_w], dtype=np.int32)
+        _check_counts(cfg, lb, db, [n_dom_w])
         with DEVICE_LOCK, timer.phase("dispatch"):
-            raw = torch.from_numpy(raw_p).to(dev)
-            mask = torch.from_numpy(mask_bytes).to(dev)
+            if captured:
+                prog = PROGRAMS.load(key, dev, (raw_p, mask_bytes, meta_np), shard_program)
+            else:
+                raw, mask, meta = (torch.from_numpy(x).to(dev)
+                                   for x in (raw_p, mask_bytes, meta_np))
             timer.lap("h2d_ms")
             timer.record(0)
             with torch.profiler.record_function("stream.shard"):
-                codes = _mesh_program(
-                    mesh, lambda d: _front_masked(raw.to(d), mask.to(d), meta, lb, cfg),
-                    [n_dom_w], lb, db, cfg,
-                )
+                if captured:
+                    codes = {0: prog.launch()}
+                else:
+                    codes = _mesh_program(
+                        mesh,
+                        lambda d: _front_masked(raw.to(d), mask.to(d), meta.to(d), lb, cfg),
+                        lb, db, cfg, [n_dom_w],
+                    )
             timer.record(1)
             timer.lap("enqueue_ms")
         with DEVICE_LOCK, timer.phase("fetch_wait"):

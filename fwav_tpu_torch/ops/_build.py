@@ -108,9 +108,11 @@ def _bind(lib):
     lib.fwav_window_stats.argtypes = [p, i, i, i, i, i, f, p, p]
     lib.fwav_refine_window.restype = i
     lib.fwav_refine_window.argtypes = [
-        p, p, i, i, p, i, ctypes.c_longlong, i, i, p, i, i,
-        ctypes.POINTER(ctypes.c_int), i, i, i, f, p, p, p,
+        p, p, i, i, p, i, ctypes.c_longlong, i, i, p, i, i, p, i, i, i, f, p, p, p,
     ]
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    lib.fwav_graph_node_kinds.restype = i
+    lib.fwav_graph_node_kinds.argtypes = [p, p, ctypes.c_longlong, ll, ll]
     return lib
 
 

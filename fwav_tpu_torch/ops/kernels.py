@@ -10,6 +10,9 @@ kernels:
 - `topc_scan` (K3) replaces `_topc_kernel` (topc_search_scan_pallas):
   the sorted top-C domains per range, the damped profile's coarse lobes.
   CUDA source: csrc/topc_scan.cu.
+  K1 and K3 take every range size of 4 to 255 taps, as the TPU kernels
+  take any: up to 16 the tensor-core kernels of csrc/scan_tile.cuh, from
+  17 on (tiles from 4352 samples) the wide kernels of csrc/scan_wide.cuh.
 - `refine_window` (K2) replaces `_refine_kernel` (refine_window_pallas)
   and the per-lobe merge of its callers: the dense window refine around
   every coarse lobe of a range, in one launch. Its per-position table
@@ -24,15 +27,16 @@ each kernel agrees with its plain version bit for bit: K2 computes in its
 order of operations; K1 and K3 screen every pair on the tensor cores
 within a proven margin and confirm the pairs that can win in its float32
 arithmetic (csrc/scan_tile.cuh). `LAUNCHES` counts kernel launches per
-wrapper.
+kernel: K1's and K3's wide kernels under their own keys.
 
 Every wrapper and every plain version also takes a stack of files: the
 same arguments with a leading file axis B on every tensor (and one n_valid
-per file for K2). On the card a stack is ONE launch, with the file as the
-slowest axis of the kernel's grid; a single file is the B = 1 case of the
-same kernel. Each file is scanned against its own bank and no reduction
-crosses files, so a file's result does not depend on the stack it is in.
-The plain versions loop over the files of a stack.
+per file for K2, ints or an int32 tensor on the device). On the card a
+stack is ONE launch, with the file as the slowest axis of the kernel's
+grid; a single file is the B = 1 case of the same kernel. Each file is
+scanned against its own bank and no reduction crosses files, so a file's
+result does not depend on the stack it is in. The plain versions loop
+over the files of a stack.
 
 `pallas_blocks_ok` and `refine_blocks_ok` are the JAX package's gates for
 its kernel path, copied so that the port takes the same branches.
@@ -49,21 +53,32 @@ from .affine import row_mean
 
 _NEG = float("-inf")
 
-#: Kernel launches per wrapper since the last reset (CPU calls, which take
-#: the plain versions, are not counted).
-LAUNCHES = {"search_scan": 0, "topc_scan": 0, "refine_window": 0, "window_stats": 0}
+#: Kernel launches since the last reset, per kernel (CPU calls, which take
+#: the plain versions, are not counted). The wide K1 and K3 (range sizes
+#: over 16) count under "search_scan_wide" and "topc_scan_wide".
+LAUNCHES = {"search_scan": 0, "topc_scan": 0, "refine_window": 0, "window_stats": 0,
+            "search_scan_wide": 0, "topc_scan_wide": 0}
 
 _OBJECTIVES = {"balanced": 0, "affine": 1, "damped": 2}
-#: Range sizes the CUDA kernels are instantiated for.
+#: Range sizes of K2 and its table (csrc/refine_window.cu). Wider ranges
+#: never reach them: a range size over 16 comes with a tile of 4352 or
+#: more and so a domain_step over 1, which the window refine's gate
+#: (refine_blocks_ok) refuses, so models/encode.py _plan_search sends it to
+#: the staged refine.
 _KERNEL_N = range(4, 17)
+#: Range sizes of K1 and K3: up to 16 the tensor-core kernels
+#: (csrc/scan_tile.cuh), from 17 the wide ones (csrc/scan_wide.cuh).
+_SCAN_N = range(4, 256)
 #: Domains per staged bank tile of K1 and K3 (csrc/scan_tile.cuh).
 _SCAN_TILE_D = 128
-#: Ranges per block of K1 and K3 (csrc/scan_tile.cuh).
+#: Ranges per block of K1 and K3 (csrc/scan_tile.cuh), and of their wide
+#: kernels (csrc/scan_wide.cuh).
 _SCAN_RANGES = 128
+_WIDE_RANGES = 32
 #: Largest C of the top-C kernel (its list lives in registers).
 _TOPC_MAX = 8
-#: Most files of one K2 launch (their n_valid ride the launch arguments by
-#: value; csrc/refine_window.cu kMaxFiles).
+#: Most files of one K2 launch: a packed stack's bound (models/encode.py
+#: PACK_B_MAX; csrc/refine_window.cu kMaxFiles).
 _REFINE_MAX_FILES = 16
 #: The refine window's box-mean budget on the TPU (bytes of means). The
 #: card needs no such cap; the gate keeps it so that the port selects the
@@ -149,7 +164,7 @@ def _check_scan_args(name, r_c, bankT, w, valid, thresh):
         thresh is not None and thresh.shape != (B, D)
     ):
         raise ValueError(f"{name}: shapes disagree")
-    if N not in _KERNEL_N or M == 0 or D == 0 or not 1 <= B <= 65535:
+    if N not in _SCAN_N or M == 0 or D == 0 or not 1 <= B <= 65535:
         raise ValueError(f"{name}: no kernel for B={B}, M={M}, N={N}, D={D}")
     return B, M, N, D
 
@@ -238,7 +253,7 @@ def search_scan(r_c, bankT, w, valid, thresh=None, s_clip=0.0):
     # split the domains over blockIdx.y when the ranges of all files would
     # leave the card's SMs idle (the exact branch: few ranges, a large bank)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    range_blocks = B * -(-M // _SCAN_RANGES)
+    range_blocks = B * -(-M // (_SCAN_RANGES if N in _KERNEL_N else _WIDE_RANGES))
     tiles = -(-D // _SCAN_TILE_D)
     n_split = max(1, min(-(-4 * sms // range_blocks), tiles))
     d_per_split = -(-tiles // n_split) * _SCAN_TILE_D
@@ -260,7 +275,7 @@ def search_scan(r_c, bankT, w, valid, thresh=None, s_clip=0.0):
             ctypes.c_void_p(stream),
         )
     _build.check(lib, code, "search_scan")
-    LAUNCHES["search_scan"] += 1
+    LAUNCHES["search_scan" if N in _KERNEL_N else "search_scan_wide"] += 1
     return score, idx
 
 
@@ -386,7 +401,7 @@ def topc_scan(r_c, bankT, w, valid, top_c: int, thresh=None, s_clip=0.0):
             ctypes.c_void_p(stream),
         )
     _build.check(lib, code, "topc_scan")
-    LAUNCHES["topc_scan"] += 1
+    LAUNCHES["topc_scan" if N in _KERNEL_N else "topc_scan_wide"] += 1
     return out.transpose(1, 2)
 
 
@@ -459,7 +474,7 @@ def window_stats(means_ext, n: int, block_len: int, objective: str = "balanced")
     if n not in _KERNEL_N or L == 0 or objective not in _OBJECTIVES or not 1 <= B <= 65535:
         raise ValueError(
             f"window_stats: no kernel for means_ext {tuple(means_ext.shape)}, "
-            f"N={n}, objective={objective!r}"
+            f"N={n}, objective={objective!r}{_K2_RANGE_NOTE}"
         )
 
     from . import _build
@@ -477,9 +492,32 @@ def window_stats(means_ext, n: int, block_len: int, objective: str = "balanced")
     return out
 
 
-def _refine_one_lobe(means_ext, lobes, ranges, n_valid: int, stride: int,
+#: Why K2 and its table stop at 16 taps, for their error messages.
+_K2_RANGE_NOTE = (
+    " (the window refine's kernels take range sizes 4..16: a wider range "
+    "comes with a domain_step over 1, which models/encode.py _plan_search "
+    "sends to the staged refine)"
+)
+
+
+def check_refine_lead(L: int, n_valid, stride: int) -> None:
+    """K2's size check on the host ints of a call: the box-mean sequence
+    of L values holds the stride-wide lead and every file's n_valid
+    positions. The wrapper runs it where it is given ints; a caller that
+    passes n_valid as a device tensor (a program captured in a CUDA graph)
+    runs it on its own host counts, on every call."""
+    top = max(int(v) for v in n_valid)
+    if L < top + stride:
+        raise ValueError(
+            f"refine_window: means_ext holds {L} values, fewer than the "
+            f"stride-wide lead and n_valid = {top} positions"
+        )
+
+
+def _refine_one_lobe(means_ext, lobes, ranges, n_valid, stride: int,
                      block_len: int, objective: str, s_clip: float):
-    """refine_window_ref for one lobe per range, blocked over ranges."""
+    """refine_window_ref for one lobe per range, blocked over ranges;
+    n_valid an int or an integer tensor of one element."""
     range_block = 16384
     M, n = ranges.shape
     dev = ranges.device
@@ -487,6 +525,9 @@ def _refine_one_lobe(means_ext, lobes, ranges, n_valid: int, stride: int,
     half = W // 2
     c = abs(float(s_clip))
     t = torch.arange(W, device=dev)
+    # read on the data's device: a tensor's value never goes to the host
+    n_valid = torch.as_tensor(n_valid, device=dev).reshape(()).to(torch.int64)
+    last = (n_valid - 1).clamp(min=0)
     score = torch.empty(M, dtype=torch.float32, device=dev)
     idx = torch.empty(M, dtype=torch.int32, device=dev)
     for r0 in range(0, M, range_block):
@@ -519,22 +560,24 @@ def _refine_one_lobe(means_ext, lobes, ranges, n_valid: int, stride: int,
         sc = torch.where(ok, sc, _NEG)
         arg = torch.argmax(sc, dim=1)  # first max
         score[r0 : r0 + range_block] = sc.gather(1, arg[:, None])[:, 0]
-        idx[r0 : r0 + range_block] = (p0 + arg).clamp(0, max(n_valid - 1, 0)).to(torch.int32)
+        idx[r0 : r0 + range_block] = torch.minimum((p0 + arg).clamp(min=0),
+                                                   last).to(torch.int32)
     return score, idx
 
 
-def refine_window_ref(means_ext, lobes, ranges, n_valid: int, stride: int,
+def refine_window_ref(means_ext, lobes, ranges, n_valid, stride: int,
                       block_len: int, objective: str = "balanced",
                       s_clip: float = 16.0):
     """Plain PyTorch K2. lobes (M,) or (M, C): each lobe column is refined
     on its own and a later column takes a range only with a strictly higher
-    score (the earlier lobe wins ties). Returns (score (M,) float32, idx
-    (M,) int32). A stack (means_ext (B, L), lobes (B, M) or (B, M, C),
-    ranges (B, M, N), n_valid B ints) is a loop over its files; returns
-    (B, M) each."""
+    score (the earlier lobe wins ties). n_valid is an int or an integer
+    tensor of one element, read on the data's device. Returns (score (M,)
+    float32, idx (M,) int32). A stack (means_ext (B, L), lobes (B, M) or
+    (B, M, C), ranges (B, M, N), n_valid B ints or a (B,) integer tensor)
+    is a loop over its files; returns (B, M) each."""
     if ranges.dim() == 3:
         per_file = [
-            refine_window_ref(means_ext[b], lobes[b], ranges[b], int(n_valid[b]),
+            refine_window_ref(means_ext[b], lobes[b], ranges[b], n_valid[b],
                               stride, block_len, objective, s_clip)
             for b in range(ranges.shape[0])
         ]
@@ -552,7 +595,7 @@ def refine_window_ref(means_ext, lobes, ranges, n_valid: int, stride: int,
     return best
 
 
-def refine_window(means_ext, lobes, ranges, n_valid: int, stride: int,
+def refine_window(means_ext, lobes, ranges, n_valid, stride: int,
                   block_len: int, objective: str = "balanced",
                   s_clip: float = 16.0, stats=None):
     """K2: per range and coarse lobe L (-1 = none), the best of the
@@ -569,9 +612,16 @@ def refine_window(means_ext, lobes, ranges, n_valid: int, stride: int,
     [0, n_valid - 1]).
 
     A stack of up to 16 files is one launch: means_ext (B, L), lobes
-    (B, M) or (B, M, C) with any strides, ranges (B, M, N), n_valid a
-    sequence of B ints (the files of a stack share every size but this
-    one), stats (B, L); returns (B, M) each."""
+    (B, M) or (B, M, C) with any strides, ranges (B, M, N), n_valid one
+    count per file (the files of a stack share every size but this one),
+    stats (B, L); returns (B, M) each.
+
+    n_valid is ints (an int for one file), which are checked here
+    (check_refine_lead) and copied to the device through pinned memory,
+    or an int32 tensor on the device, (B,) or one element for one file,
+    which the kernel reads there: nothing of it is then baked into a
+    captured launch, and the caller runs check_refine_lead on its host
+    counts. Under a CUDA graph capture n_valid must be the tensor."""
     dev = ranges.device
     if dev.type == "cpu":
         return refine_window_ref(means_ext, lobes, ranges, n_valid, stride,
@@ -579,12 +629,12 @@ def refine_window(means_ext, lobes, ranges, n_valid: int, stride: int,
     if dev.type != "cuda":
         raise ValueError(f"refine_window: unsupported device {dev}")
     if ranges.dim() == 2:
+        nv = n_valid.reshape(1) if torch.is_tensor(n_valid) else [int(n_valid)]
         score, idx = refine_window(
-            *_stack_of_one(means_ext, lobes, ranges), [int(n_valid)], stride,
+            *_stack_of_one(means_ext, lobes, ranges), nv, stride,
             block_len, objective, s_clip, *_stack_of_one(stats))
         return score[0], idx[0]
     B, M, n = ranges.shape
-    n_valid = [int(v) for v in n_valid]
     if (means_ext.dim() != 2 or lobes.dim() not in (2, 3) or lobes.shape[:2] != (B, M)
             or means_ext.shape[0] != B or len(n_valid) != B):
         raise ValueError("refine_window: shapes disagree")
@@ -592,14 +642,21 @@ def refine_window(means_ext, lobes, ranges, n_valid: int, stride: int,
             or B > _REFINE_MAX_FILES):
         raise ValueError(
             f"refine_window: no kernel for B={B}, M={M}, N={n}, lobes "
-            f"{tuple(lobes.shape)}, objective={objective!r}"
+            f"{tuple(lobes.shape)}, objective={objective!r}{_K2_RANGE_NOTE}"
         )
     L = means_ext.shape[1]
-    if L < max(n_valid) + stride:
-        raise ValueError(
-            f"refine_window: means_ext holds {L} values, fewer than the "
-            f"stride-wide lead and n_valid = {max(n_valid)} positions"
-        )
+    if torch.is_tensor(n_valid):
+        if (n_valid.shape != (B,) or n_valid.dtype != torch.int32 or n_valid.device != dev
+                or not n_valid.is_contiguous()):
+            raise TypeError(f"refine_window: n_valid is {n_valid.dtype} {tuple(n_valid.shape)} "
+                            f"on {n_valid.device}, expected int32 ({B},) on {dev}")
+    else:
+        check_refine_lead(L, n_valid, stride)
+        if torch.cuda.is_current_stream_capturing():
+            raise TypeError("refine_window: under a graph capture n_valid must be an int32 "
+                            "tensor on the device, not host ints")
+        n_valid = torch.tensor([int(v) for v in n_valid], dtype=torch.int32).pin_memory()
+        n_valid = n_valid.to(dev, non_blocking=True)
     if stats is None:
         stats = window_stats(means_ext, n, block_len, objective)
     elif stats.shape != (B, L):
@@ -626,7 +683,7 @@ def refine_window(means_ext, lobes, ranges, n_valid: int, stride: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fwav_refine_window(
             _ptr(means_ext), _ptr(stats), B, L, _ptr(lobes), C, stride_b, stride_m,
-            stride_c, _ptr(ranges), M, n, (ctypes.c_int * B)(*n_valid), int(stride),
+            stride_c, _ptr(ranges), M, n, _ptr(n_valid), int(stride),
             int(block_len),
             _OBJECTIVES[objective], np.float32(abs(float(s_clip))).item(),
             _ptr(score), _ptr(idx), ctypes.c_void_p(stream),

@@ -61,6 +61,8 @@ def per_lobe(means_ext, lobes, ranges, *rest):
 
 def time_k2(res, name, k2):
     lobes = k2[1]
+    if hasattr(kernels, "check_refine_lead"):  # K2 reads n_valid from device memory
+        k2 = (*k2[:3], chip_smoke.device_counts(k2[3], dev), *k2[4:])
     if not single_launch and lobes.dim() == 2:
         res["k2_" + name] = chip_smoke.graph_ms(lambda: per_lobe(*k2))
         return

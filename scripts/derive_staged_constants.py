@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Derive the staged-refine constants that chip_smoke.py holds the card to.
+"""Derive the staged-refine and wide-tile constants that chip_smoke.py holds
+the card to.
 
     JAX_PLATFORMS=cpu python scripts/derive_staged_constants.py [case ...]
 
 For each case of chip_smoke.STAGED (a single-shot encode whose coarse
 refine is the staged one: a 60 s file, whose bank is over the window
-refine's 9 MB means cap, and 10 s files at tile 512 and tile 2048) it runs
+refine's 9 MB means cap, and 10 s files at tile 512 and tile 2048) and of
+chip_smoke.WIDE (10 s at tiles 8192 and 16384: range sizes 32 and 64,
+which K1 and K3 scan with their wide kernels on the card) it runs
 the JAX package on the CPU on its kernel path
 (EncoderConfig(use_pallas=True)) and prints the range count, the sentinel
 count and the round-trip SNR, then runs the port on the CPU (the plain
 versions) and prints how far its records are from the JAX run's. The
-numbers go into chip_smoke.STAGED by hand;
-tests/test_torch_encode.py::test_staged_constants_of_chip_smoke (marked
-slow) re-derives them.
+numbers go into chip_smoke.STAGED and chip_smoke.WIDE by hand;
+tests/test_torch_encode.py::test_staged_constants_of_chip_smoke and
+::test_wide_constants_of_chip_smoke re-derive them.
 """
 
 import dataclasses
@@ -39,8 +42,9 @@ def main(argv):
     from fwav_tpu.utils.metrics import compute_snr
 
     torch.set_num_threads(4)
-    for name in argv or list(chip_smoke.STAGED):
-        case = chip_smoke.STAGED[name]
+    cases = {**chip_smoke.STAGED, **chip_smoke.WIDE}
+    for name in argv or list(cases):
+        case = cases[name]
         sig = bench.make_signal(case["seconds"])
         jcfg = JaxEncoderConfig(use_pallas=True, **case["kw"])
         t0 = time.perf_counter()

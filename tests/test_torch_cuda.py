@@ -30,6 +30,9 @@ from fwav_tpu_torch.ops.search import domain_thresh, domain_weights
 
 pytestmark = pytest.mark.cuda
 
+#: The wide K1 and K3 (range sizes over 16), which these paths never launch.
+NO_WIDE = {"search_scan_wide": 0, "topc_scan_wide": 0}
+
 
 @pytest.fixture
 def dev():
@@ -201,7 +204,7 @@ def test_slice_on_the_card_matches_the_host():
     kernels.reset_launch_counts()
     gpu = port.compress_audio_arrays(sig, 44100, 2, device="cuda")
     assert kernels.LAUNCHES == {"search_scan": 1, "topc_scan": 0, "refine_window": 1,
-                                "window_stats": 1}
+                                "window_stats": 1, **NO_WIDE}
     cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
 
@@ -284,7 +287,7 @@ def test_damped_slice_on_the_card_matches_the_host():
     kernels.reset_launch_counts()
     gpu = port.compress_audio_arrays(sig, 44100, 2, objective="damped", device="cuda")
     assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 1, "refine_window": 1,
-                                "window_stats": 1}
+                                "window_stats": 1, **NO_WIDE}
     cpu = port.compress_audio_arrays(sig, 44100, 2, objective="damped", device="cpu")
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
 
@@ -335,10 +338,10 @@ def test_stream_on_the_card_matches_the_host(dev, objective):
     cpu = port.compress_audio_streaming(sig, 44100, 2, device="cpu", **kw)
     if objective == "damped":
         assert launches == {"search_scan": 0, "topc_scan": 6, "refine_window": 5,
-                            "window_stats": 5}
+                            "window_stats": 5, **NO_WIDE}
     else:
         assert launches == {"search_scan": 5, "topc_scan": 0, "refine_window": 5,
-                            "window_stats": 5}
+                            "window_stats": 5, **NO_WIDE}
     np.testing.assert_array_equal(gpu[0]["idx"] < 0, cpu[0]["idx"] < 0)
     assert int((gpu[0]["idx"] != cpu[0]["idx"]).sum()) <= 2 * -(-len(cpu[0]) // 1024)
 
@@ -546,11 +549,14 @@ def test_topk_on_the_card_matches_the_host(dev):
 
 
 @pytest.mark.parametrize("seconds,kw,launches", [
-    (2.0, {}, {"search_scan": 4, "topc_scan": 0, "refine_window": 4, "window_stats": 4}),
+    (2.0, {}, {"search_scan": 4, "topc_scan": 0, "refine_window": 4, "window_stats": 4,
+               **NO_WIDE}),
     (2.0, {"objective": "damped"},
-     {"search_scan": 0, "topc_scan": 4, "refine_window": 4, "window_stats": 4}),
+     {"search_scan": 0, "topc_scan": 4, "refine_window": 4, "window_stats": 4,
+      **NO_WIDE}),
     (0.5, {"search": "exact"},
-     {"search_scan": 4, "topc_scan": 0, "refine_window": 0, "window_stats": 0}),
+     {"search_scan": 4, "topc_scan": 0, "refine_window": 0, "window_stats": 0,
+      **NO_WIDE}),
 ])
 def test_repeated_card_mesh_matches_one_device(dev, seconds, kw, launches):
     """A (2, 2) mesh of four cells on cuda:0 (parallel/mesh.py) gives the
@@ -609,3 +615,209 @@ def test_reference_shaped_ops_run_on_the_card_by_default(dev):
     b = perceptual.pruned_affine_search(tile, list(range(40)), bank, device="cpu")
     assert a[0] == b[0] and a[3] == b[3]
     np.testing.assert_allclose(a[1:3] + a[4:], b[1:3] + b[4:], rtol=1e-5, atol=1e-5)
+
+
+# --- range sizes over 16: the wide scans (csrc/scan_wide.cuh) ------------------
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("M,D,N", [(1000, 3000, 17), (333, 1111, 32), (50, 20000, 64),
+                                   (77, 1029, 255)])
+def test_wide_search_scan_equals_plain(dev, objective, M, D, N):
+    """K1 at range sizes 17 to 255: every staged tile mixed-valid, ragged
+    range blocks and tiles, duplicate bank rows (exact ties), and a shape
+    whose domains split over blocks (few ranges, a large bank)."""
+    args = _k1(dev, M + D + N, M, D, N, objective)
+    before = dict(kernels.LAUNCHES)
+    s_k, i_k = kernels.search_scan(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {**before, "search_scan_wide": before["search_scan_wide"] + 1}
+    s_p, i_p = kernels.search_scan_ref(*args)
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(s_k, s_p)
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("N,ties", [(17, False), (32, True), (64, False)])
+def test_wide_topc_scan_equals_plain(dev, objective, C, N, ties):
+    r_c, bankT, w, valid, t, c = _k3(dev, 13 * C + N, 1500, 2000, N, objective, ties)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.topc_scan(r_c, bankT, w, valid, C, t, c)
+    assert kernels.LAUNCHES == {**before, "topc_scan_wide": before["topc_scan_wide"] + 1}
+    assert torch.equal(got, kernels.topc_scan_ref(r_c, bankT, w, valid, C, t, c))
+    if ties:
+        _assert_lower_copy_first(got, 2000 // 2)
+
+
+def test_wide_scans_stack_equals_single_launches(dev):
+    """A stack of 3 files at N = 32 in one launch of each wide kernel."""
+    files = [_k1(dev, 70 + b, 500, 900, 32, "damped") for b in range(3)]
+    st = [torch.stack([f[k] for f in files]) for k in range(5)]
+    s, i = kernels.search_scan(*st, 2.0)
+    lists = kernels.topc_scan(*st[:4], 4, st[4], 2.0)
+    for b, f in enumerate(files):
+        s_b, i_b = kernels.search_scan(*f)
+        assert torch.equal(s[b], s_b) and torch.equal(i[b], i_b)
+        assert torch.equal(lists[b], kernels.topc_scan(*f[:4], 4, f[4], f[5]))
+
+
+def test_window_refine_refuses_wide_ranges(dev):
+    """K2 and its table stop at 16 taps, and say why."""
+    ext, lobes, ranges, n_valid, stride, block_len = _k2(dev, 2, 64, 17, 1)
+    with pytest.raises(ValueError, match="range sizes 4..16"):
+        kernels.refine_window(ext, lobes, ranges, n_valid, stride, block_len, "balanced", 2.0)
+    with pytest.raises(ValueError, match="staged refine"):
+        kernels.window_stats(ext, 17, block_len, "balanced")
+
+
+@pytest.mark.parametrize("kw", [{"tile_size": 8192}, {"tile_size": 8192, "objective": "damped",
+                                                      "search": "coarse"},
+                                {"tile_size": 16384}])
+def test_wide_tile_encode_on_the_card_matches_the_host(dev, kw):
+    """Range sizes 32 and 64 on the card: one launch of the wide K1 or
+    K3, counted under its own key, and the host run's records."""
+    sig = bench.make_signal(3.0)
+    kernels.reset_launch_counts()
+    gpu = port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
+    scan = "topc_scan_wide" if kw.get("objective") == "damped" else "search_scan_wide"
+    assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), scan: 1}
+    cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu", **kw)
+    np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
+
+
+# --- the captured programs (models/program.py) ---------------------------------
+
+
+def test_refine_window_reads_n_valid_from_the_device(dev):
+    """K2 with n_valid as an int32 device tensor gives the int form's bits,
+    and a launch captured in a CUDA graph follows the tensor's value at
+    each replay."""
+    files = [_k2(dev, 40 + b, 700, 4, 2) for b in range(2)]
+    ext, ranges = (torch.stack([f[k] for f in files]) for k in (0, 2))
+    lobes = torch.stack([f[1] for f in files])
+    stride, block_len = files[0][4:]
+    ints = [files[0][3], files[1][3] - 300]
+    nv = torch.tensor(ints, dtype=torch.int32, device=dev)
+    want = kernels.refine_window(ext, lobes, ranges, ints, stride, block_len, "damped", 2.0)
+    got = kernels.refine_window(ext, lobes, ranges, nv, stride, block_len, "damped", 2.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    stats = kernels.window_stats(ext, 4, block_len, "damped")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernels.refine_window(ext, lobes, ranges, nv, stride, block_len, "damped", 2.0,
+                                    stats=stats)
+    for shift in (0, 500, 1000):
+        nv.copy_(torch.tensor([ints[0] - shift, ints[1]], dtype=torch.int32))
+        graph.replay()
+        ref = kernels.refine_window_ref(ext, lobes, ranges, [ints[0] - shift, ints[1]], stride,
+                                        block_len, "damped", 2.0)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref)), shift
+
+
+def test_refine_window_refuses_host_ints_under_capture(dev):
+    """Host ints would be baked into a captured launch: under a capture
+    n_valid must be the device tensor."""
+    ext, lobes, ranges, n_valid, stride, block_len = _k2(dev, 40, 700, 4, 2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(TypeError, match="under a graph capture"):
+        with torch.cuda.graph(graph):
+            kernels.refine_window(ext, lobes, ranges, n_valid, stride, block_len, "damped",
+                                  2.0)
+
+
+def _eager(monkeypatch):
+    from fwav_tpu_torch.models import encode, stream
+
+    monkeypatch.setattr(encode, "_captured", lambda *a: False)
+    monkeypatch.setattr(stream, "_captured", lambda *a: False)
+
+
+@pytest.mark.parametrize("kw", [{}, {"objective": "damped"}, {"search": "exact"}])
+def test_captured_encode_replays_the_eager_records(dev, monkeypatch, kw):
+    """Two lengths of one bucket through one capture, each with the eager
+    run's records and launch counts; a packed stack alike."""
+    from fwav_tpu_torch.models.program import PROGRAMS
+
+    sig = bench.make_signal(2.0)
+    sigs = [sig, sig[:-2000]]
+    with monkeypatch.context() as m:
+        _eager(m)
+        want, counts = [], []
+        for s in sigs:
+            kernels.reset_launch_counts()
+            want.append(port.compress_audio_arrays(s, 44100, 2, device="cuda", **kw))
+            counts.append(dict(kernels.LAUNCHES))
+        stack = port.compress_audio_packed(sigs, 44100, 2, device="cuda", **kw)
+    PROGRAMS.clear()
+    for rnd in range(2):  # first call, capture, two replays
+        for s, w, c in zip(sigs, want, counts):
+            kernels.reset_launch_counts()
+            got = port.compress_audio_arrays(s, 44100, 2, device="cuda", **kw)
+            assert kernels.LAUNCHES == c
+            np.testing.assert_array_equal(got[0].view(np.uint8), w[0].view(np.uint8))
+    st = PROGRAMS.stats()
+    assert (st["first_calls"], st["captures"], st["replays"]) == (1, 1, 2)
+    assert st["programs"][0]["nodes"]["kernel"] >= sum(counts[0].values())
+    for _ in range(2):
+        got = port.compress_audio_packed(sigs, 44100, 2, device="cuda", **kw)
+        for a, b in zip(got, stack):
+            np.testing.assert_array_equal(a[0].view(np.uint8), b[0].view(np.uint8))
+    assert PROGRAMS.stats()["captures"] == 2
+
+
+def test_captured_stream_replays_the_eager_records(dev, monkeypatch):
+    """Every shard of a stream replays one program; the records are the
+    eager run's."""
+    from fwav_tpu_torch.models.program import PROGRAMS
+
+    sig = bench.make_signal(12.0)
+    kw = dict(shard_samples=1 << 17, halo=1 << 15, objective="damped")
+    with monkeypatch.context() as m:
+        _eager(m)
+        want = port.compress_audio_streaming(sig, 44100, 2, device="cuda", **kw)[0]
+    PROGRAMS.clear()
+    got = port.compress_audio_streaming(sig, 44100, 2, device="cuda", **kw)[0]
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+    st = PROGRAMS.stats()
+    assert (st["first_calls"], st["captures"], st["replays"]) == (1, 1, 3)
+
+
+def test_threads_replaying_one_key_keep_their_records(dev, monkeypatch):
+    """Eight threads replay one program in turns, two lengths of its
+    bucket, with a short switch interval: each call gets the records of its
+    own file (the codes leave the graph's output before the lock is
+    released)."""
+    import sys
+    import threading
+
+    sig = bench.make_signal(2.0)
+    sigs = [sig, sig[:-2000]]
+    with monkeypatch.context() as m:
+        _eager(m)
+        want = [port.compress_audio_arrays(s, 44100, 2, device="cuda")[0] for s in sigs]
+    for _ in range(2):  # a first call, then the capture
+        port.compress_audio_arrays(sig, 44100, 2, device="cuda")
+    bad, done = [], []
+
+    def worker(k):
+        for _ in range(5):
+            got = port.compress_audio_arrays(sigs[k % 2], 44100, 2, device="cuda")[0]
+            if got.tobytes() != want[k % 2].tobytes():
+                bad.append(k)
+        done.append(k)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(done) == list(range(8)) and not bad

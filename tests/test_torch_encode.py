@@ -355,6 +355,41 @@ def test_staged_tile_2048_matches_jax():
     _staged_parity(_sig(66000)[0], 16000, dict(search="coarse", tile_size=2048))
 
 
+#: Range sizes over 16 (tiles from 4352): K1 and K3 take their wide kernels
+#: on the card (csrc/scan_wide.cuh), whose plain versions run here. name ->
+#: (seconds of bench.make_signal, config kwargs, plan). On 3 s, tile 8192
+#: (N = 32, domain_step 8) has a 16,384-row bank: "auto" takes the exact
+#: branch; "coarse" takes the staged refine (domain_step > 1), after K1 or,
+#: damped, K3's four lobes. Tile 16384 (N = 64) and tile 4352 (N = 17) alike.
+WIDE = {
+    "tile8192": (3.0, dict(tile_size=8192), ("exact", 128, None)),
+    "tile8192_damped": (3.0, dict(tile_size=8192, objective="damped", search="coarse"),
+                        ("coarse", 128, "staged")),
+    "tile8192_coarse": (3.0, dict(tile_size=8192, search="coarse"), ("coarse", 128, "staged")),
+    "tile16384": (3.0, dict(tile_size=16384), ("exact", 128, None)),
+    "tile4352_coarse": (2.0, dict(tile_size=4352, search="coarse"), ("coarse", 128, "staged")),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE))
+def test_wide_tile_matches_jax(case):
+    """Tiles of 4352 and more (range sizes 17 to 64) through both packages
+    at the Encode bar (2 differing rows per 1,024 at most). Measured: 0
+    differing rows at tiles 8192 and 16384, 6 of 5,189 at tile 4352."""
+    seconds, kw, plan = WIDE[case]
+    sig = bench.make_signal(seconds)
+    jcfg = JaxEncoderConfig(use_pallas=True, **kw)
+    cfg = EncoderConfig.from_reference(dataclasses.asdict(jcfg))
+    assert cfg.range_size > 16
+    _, _, _, lb, db = port_encode._prep_signal(sig, cfg)
+    assert port_encode._plan_search(cfg, lb // cfg.range_size, db) == plan
+    kernels.reset_launch_counts()
+    J = jax_encode(sig, 44100, 2, config=jcfg)
+    T = port.compress_audio_arrays(sig, 44100, 2, config=cfg, device="cpu")
+    assert not any(kernels.LAUNCHES.values())
+    _assert_encode_bar(sig, J, T, cfg, 2 * -(-J[2] // 1024))
+
+
 @pytest.fixture
 def small_means_cap(monkeypatch):
     """The window refine's means cap lowered to 64 KB in both packages, so
@@ -396,6 +431,23 @@ def test_staged_constants_of_chip_smoke(case):
     cfg = EncoderConfig.from_reference(dataclasses.asdict(jcfg))
     _, _, _, lb, db = port_encode._prep_signal(sig, cfg)
     assert port_encode._plan_search(cfg, lb // cfg.range_size, db)[2] == "staged"
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.WIDE))
+def test_wide_constants_of_chip_smoke(case):
+    """chip_smoke.py holds the 10 s wide-tile encodes (tiles 8192 and
+    16384) to the JAX CPU kernel-path run's numbers; re-derive them
+    (scripts/derive_staged_constants.py prints them), and the plan."""
+    want = chip_smoke.WIDE[case]
+    sig = bench.make_signal(want["seconds"])
+    jcfg = JaxEncoderConfig(use_pallas=True, **want["kw"])
+    J = jax_encode(sig, 44100, 2, config=jcfg)
+    assert J[2] == want["n_ranges"]
+    assert int((J[0]["idx"] < 0).sum()) == want["sentinels"]
+    assert abs(_snr(sig, J, jax_decode, **want["decode"]) - want["snr_db"]) <= 5e-5
+    cfg = EncoderConfig.from_reference(dataclasses.asdict(jcfg))
+    _, _, _, lb, db = port_encode._prep_signal(sig, cfg)
+    assert list(port_encode._plan_search(cfg, lb // cfg.range_size, db)) == want["plan"]
 
 
 def test_means_cap_raises():
