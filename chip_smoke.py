@@ -17,7 +17,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    K3's four, and its per-position table to exact equality), with
    CUDA-event times of both, the kernel's bound (bytes, tensor work and
    CUDA-core operations of these inputs at the card's published peaks)
-   and its share of it;
+   and its share of it; K4 (the staged refine) bit for bit at the shapes of
+   the 100 s global pass, the staged single-shot encodes (60 s; tiles 512,
+   2048 and 8192) and a stack of 16 files at tile 512;
 4. slice: 10 s of 44.1 kHz 16-bit mono through the public API on the card
    (WAV write/read, compress_audio_arrays, prune_bank, save/load,
    decompress_audio): K1 and K2 launched, the sentinel count and the
@@ -30,7 +32,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 6. stream: 100 s of bench.make_signal(100.0) through
    compress_audio_streaming at the default shard and halo (5 shards):
    damped (K3 then K2 once in every shard, then the whole-file global
-   pass: K3 over every range of the file and the staged window refine;
+   pass: K3 over every range of the file and K4 once over its 4 lobe
+   columns; the profiled pass's records and busy time;
    the streaming prune, v2 with the hint, the decode loop at the stored
    hint), the same without the pass (it must gain more than 3 dB), and
    balanced (K1 then K2 per shard; the unpruned bank through the streaming
@@ -55,8 +58,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    wall and busy time against 16 single calls, peak memory;
 9. staged: the single-shot geometries whose coarse refine is the staged
    one (a 60 s file, over the window refine's 9 MB means cap; 10 s at tile
-   512 and at tile 2048), balanced and damped: K2 is not launched, the
-   JAX package's sentinels and SNR, peak memory;
+   512 and at tile 2048), balanced and damped: K1 or K3 and K4 once each,
+   K2 not launched, the JAX package's sentinels and SNR, peak memory;
 9b. wide_tiles: the 10 s file at tile 8192 (range size 32: coarse, the
    staged refine after K1, or damped K3) and at tile 16384 (range size 64:
    the exact branch), where K1 and K3 run their wide kernels
@@ -100,8 +103,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    single-device ones;
 14b. graphs: the device programs captured per shape key
    (fwav_tpu_torch/models/program.py) against the eager runs of the same
-   calls: the 10 s default and damped encodes, a 0.5 s clip (exact), stacks
-   of 16 ten-second files and 16 clips, and the 100 s streams' shards,
+   calls: the 10 s default and damped encodes, a 0.5 s clip (exact), the
+   staged plan (K4: tile 512 balanced and damped, tile 8192), stacks of 16
+   ten-second files (also at tile 512, damped) and 16 clips, and the 100 s
+   streams' shards,
    each replay's records byte-equal to the eager ones with the eager launch
    counts, each kernel those counts name found by name in a profiled
    replay, and the main paths' sentinels and SNR; two lengths of one
@@ -283,6 +288,16 @@ REFINE_OPS_PER_POSITION = {"balanced": 5, "affine": 2, "damped": 3}
 #: position (3).
 REFINE_OPS_PER_PAIR = {"balanced": 6, "affine": 6, "damped": 10}
 REFINE_WINDOW = 160
+#: K4's CUDA-core operations per scored bank row beside 3 per tap, by the
+#: rule above (csrc/staged_refine.cu row_gain): per tap an add of the
+#: row's mean, the centring and the energy's multiply-add (the mean's
+#: division is the N-th of its N operations); the numerators go to the
+#: tensor rate. Then + eps (1), the weight (balanced 6: - eps, N mean, its
+#: square, the difference, denom squared, the division; affine and damped
+#: 1, the reciprocal), the two gains (4), damped the threshold (2) and
+#: each orientation's clip (6 each), the fold (2) and the running first
+#: max (3). A division counts as one operation.
+K4_OPS_PER_ROW = {"balanced": 16, "affine": 11, "damped": 25}
 LIBRARY_NOTE = ("none: no single PyTorch call computes a running argmax or top-C of "
                 "the clip-aware, weighted, orientation-folded gain, a refine around "
                 "lobes, or its per-position table")
@@ -653,6 +668,7 @@ def main() -> int:
     stream_kernel_checks(kernels, enc, dev, stream_sig, checks)
     stack_kernel_checks(kernels, enc, dev, sig, checks)
     staged_kernel_checks(port, kernels, enc, dev, checks)
+    staged_refine_checks(port, kernels, enc, dev, stream_sig, checks)
     mesh_kernel_checks(kernels, enc, dev, sig, stream_sig, checks)
     wide_kernel_checks(kernels, dev, checks)
     for key, val in checks.items():
@@ -749,7 +765,7 @@ def main() -> int:
 
         err = max(v["max_abs_err"] for k, v in checks.items()
                   if k.startswith(prefix) and is_wide(k) == wide)
-        paths = {name: p[key] for name, p in by_path.items() if p[key]}
+        paths = {name: p[key] for name, p in by_path.items() if p.get(key)}
         main = checks[main_check]
         out = {"launches": sum(paths.values()), "launches_by_path": paths,
                "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -792,6 +808,13 @@ def main() -> int:
          "source": "fwav_tpu_torch/csrc/scan_wide.cuh",
          "replaces": "fwav_tpu/ops/pallas_search.py:141",
          **summary("topc_scan_wide", "k3_", "k3_wide_n32", wide=True)},
+        {"name": "staged_refine (K4; no TPU counterpart: XLA's fusion of refine_from_lobes)",
+         "route": "cuda", "source": "fwav_tpu_torch/csrc/staged_refine.cu",
+         "replaces": "fwav_tpu/ops/search.py:470",
+         **summary("staged_refine", "k4_", "k4_global_pass", "k4_stack16_tile512_damped"),
+         "by_shape": {k: {f: checks[k][f] for f in (
+             "shape", "N", "stride", "objective", "per_lobe", "scored_rows", "ms", "plain_ms",
+             "bound_ms", "bound_by", "share_of_bound")} for k in checks if k.startswith("k4_")}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -985,6 +1008,179 @@ def staged_kernel_checks(port, kernels, enc, dev, checks):
                 kernels, f"K1 staged {name}", args, False, 16384, **slow)
 
 
+def k4_rows(lobes, n_valid, stride, per_lobe) -> int:
+    """The bank rows K4 scores on these inputs: per live lobe of a pass,
+    the descent's samples (W/16 + 1, then 5 where W >= 64; W/8 + 1 below)
+    and its final window's rows under n_valid, or the dense window's rows
+    under n_valid. Lobes of -1 and rows at or past n_valid are not scored.
+    lobes (B, M, C) or (M, C); n_valid (B,)."""
+    import torch
+
+    W = max(2, stride + stride // 4)
+    lobes = lobes if lobes.dim() == 3 else lobes[None]
+    nv = n_valid.to(torch.int64).reshape(-1, 1, 1)
+    live = lobes >= 0
+    if stride >= 32 and (per_lobe or lobes.shape[2] == 1):
+        w2 = (4 if W >= 64 else 8) + 2
+        fixed = W // (16 if W >= 64 else 8) + 1 + (5 if W >= 64 else 0)
+        rows = torch.where(live & (nv >= 1), fixed + nv.clamp(max=w2), 0)
+    else:
+        start = torch.minimum((lobes.to(torch.int64) * stride - W // 2).clamp(min=0),
+                              (nv - W).clamp(min=0))
+        rows = torch.where(live, (nv - start).clamp(0, W), 0)
+    return int(rows.sum())
+
+
+def k4_bound(ranges, bank, lobes, n_valid, stride, objective, per_lobe) -> dict:
+    """K4's least time on these inputs: the scored rows' CUDA-core
+    operations (3 per tap and K4_OPS_PER_ROW), their numerators on the
+    tensor cores, or the bank, the ranges, the lobes and the counts read
+    once and (idx, score) written once."""
+    rows = k4_rows(lobes, n_valid, stride, per_lobe)
+    N = int(ranges.shape[-1])
+    nbytes = 4 * (bank.numel() + ranges.numel() + lobes.numel() + n_valid.numel()) \
+        + 8 * (ranges.numel() // N)
+    return {"scored_rows": rows, **bound({
+        "cuda_core": rows * (3 * N + K4_OPS_PER_ROW[objective]) / CUDA_CORE_OPS_PER_S * 1e3,
+        "tensor": numerator_ms(rows, N),
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+    })}
+
+
+def k4_inputs(kernels, enc, dev, sig, cfg, stride, lb, db, n_domains, C, files=1):
+    """K4's inputs as a staged path builds them from `sig`, at its buckets:
+    the signal normalized (in a stack each file rolled by its own offset,
+    its n_valid 1,000 rows under the previous file's), cut into lb // n
+    ranges (the VAD mask left out), the full db-row bank zero from n_valid
+    on, and the lobes of the path's scan over its stride-subsampled rows:
+    K1's one (balanced) or K3's C (damped, and the global pass). Returns
+    (ranges, bank, n_valid, lobes), a stack or, for one file, its file."""
+    import numpy as np
+    import torch
+
+    from fwav_tpu_torch.ops.affine import affine_stats, row_mean
+    from fwav_tpu_torch.ops.search import domain_thresh, domain_weights
+
+    n = cfg.range_size
+    x = np.zeros(enc.bucket(max(len(sig), lb), 4096), np.float32)
+    x[: len(sig)] = sig / np.abs(sig).max()
+    raw = torch.from_numpy(np.stack([np.roll(x, 4099 * b) for b in range(files)])).to(dev)
+    nv = torch.tensor([n_domains - 1000 * b for b in range(files)], dtype=torch.int32,
+                      device=dev)
+    ranges = raw[:, :lb].reshape(files, lb // n, n).contiguous()
+    bank = enc.build_bank(raw, cfg.tile_size, n, cfg.domain_step, db, nv.to(torch.int64))
+    dc = db // stride
+    bank_sub = bank.reshape(files, dc, stride, n)[:, :, 0, :]
+    mean, denom = affine_stats(bank_sub)
+    scan = (ranges - row_mean(ranges)[..., None], bank_sub.transpose(1, 2).contiguous(),
+            domain_weights(mean, denom, n, cfg.objective),
+            torch.arange(dc, device=dev)[None, :] * stride < nv[:, None])
+    thresh = domain_thresh(denom, cfg.objective, cfg.s_clip)
+    if C == 1:
+        score, idx = kernels.search_scan(*scan, thresh, cfg.s_clip)
+        lobes = torch.where(torch.isfinite(score), idx, -1)[..., None]
+    else:
+        lobes = kernels.topc_scan(*scan, C, thresh, cfg.s_clip)
+    out = (ranges, bank, nv, lobes)
+    return out if files > 1 else tuple(t[0] for t in out[:2]) + (nv, lobes[0])
+
+
+def k4_check(kernels, name, args, stride, cfg, per_lobe=False, **plain_timing):
+    """K4 against its plain version on the card: bit for bit (0 differing
+    rows, 0 score error), timed as replayed CUDA graphs (graph_ms: the card
+    alone), with its bound on these inputs."""
+    import torch
+
+    from fwav_tpu_torch.ops import near_tie
+
+    ranges, bank, nv, lobes = args
+    k4 = (*args, stride, cfg.objective, cfg.s_clip, per_lobe)
+    got, want = kernels.staged_refine(*k4), kernels.staged_refine_ref(*k4)
+    differ = int(((got[0] != want[0])
+                  | (got[1].view(torch.int32) != want[1].view(torch.int32))).sum())
+    check = near_tie.check_argmax(name, (got[1].reshape(-1), got[0].reshape(-1)),
+                                  (want[1].reshape(-1), want[0].reshape(-1)))
+    if differ or check["idx_diff"] or check["max_abs_err"]:
+        raise AssertionError(f"{name}: {differ} rows differ from the plain version: {check}")
+    check = {**check, "differing_rows": differ, "shape": [*lobes.shape, int(bank.shape[-2])],
+             "N": int(ranges.shape[-1]), "stride": stride, "objective": cfg.objective,
+             "per_lobe": per_lobe, **k4_bound(ranges, bank, lobes, nv, stride, cfg.objective,
+                                               per_lobe)}
+    return timed(check, lambda: kernels.staged_refine(*k4),
+                 lambda: kernels.staged_refine_ref(*k4), timer=graph_ms, **plain_timing)
+
+
+#: K4 at the staged paths' shapes: (check, seconds of make_signal, config).
+K4_CHECKS = [("k4_60s_balanced", 60.0, {}),
+             ("k4_60s_damped", 60.0, {"objective": "damped"}),
+             ("k4_tile512_balanced", 10.0, {"tile_size": 512}),
+             ("k4_tile512_damped", 10.0, {"tile_size": 512, "objective": "damped"}),
+             ("k4_tile2048_balanced", 10.0, {"tile_size": 2048}),
+             ("k4_tile2048_damped", 10.0, {"tile_size": 2048, "objective": "damped"}),
+             ("k4_tile8192_balanced", 10.0, {"tile_size": 8192}),
+             ("k4_tile8192_damped", 10.0, {"tile_size": 8192, "objective": "damped"})]
+
+
+def staged_refine_checks(port, kernels, enc, dev, stream_sig, checks):
+    """K4 against its plain version on the card at the shapes of its main
+    paths: the 100 s stream's global pass (1,310,720 ranges x 4 lobe
+    columns, each its descent, over 5,242,880 rows), the staged single-shot
+    encodes (60 s: 786,432 x 1 lobe, the (16, 4) descent, and x 4 lobes,
+    dense 4 x 160 rows, over 3,145,728 rows; 10 s at tiles 512, 2048 and
+    8192, the last at 32 taps) and a stack of 16 ten-second files at tile
+    512 (damped), whose every file equals its single launch bit for bit."""
+    import torch
+
+    from bench import make_signal
+    from fwav_tpu_torch.models.stream import GLOBAL_NOM_ROWS
+
+    slow = {"plain_reps": 3, "plain_warmup": 1}
+    # the global pass, as models/stream.py _global_pass sizes it
+    cfg = port.EncoderConfig(objective="damped")
+    n = cfg.range_size
+    m = -(-len(stream_sig) // n)
+    d_total = enc.n_domains_for(len(stream_sig), cfg.tile_size, cfg.domain_step)
+    stride = cfg.global_stride
+    while -(-d_total // stride) > GLOBAL_NOM_ROWS:
+        stride *= 2
+    lb, db = enc.bucket(m, 256) * n, enc.bucket(-(-d_total // stride), 16) * stride
+    args = k4_inputs(kernels, enc, dev, stream_sig, cfg, stride, lb, db, d_total,
+                     cfg.global_topc)
+    checks["k4_global_pass"] = k4_check(kernels, "K4 global pass", args, stride, cfg,
+                                        per_lobe=True, plain_reps=2, plain_warmup=1)
+    del args
+    signals = {}
+    for key, seconds, kw in K4_CHECKS:
+        sig = signals.setdefault(seconds, make_signal(seconds))
+        cfg = port.EncoderConfig(**kw)
+        _, _, nd, lb, db = enc._prep_signal(sig, cfg)
+        mode, stride, refine = enc._plan_search(cfg, lb // cfg.range_size, db)
+        if (mode, refine) != ("coarse", "staged"):
+            raise AssertionError(f"{key}: the plan is {(mode, stride, refine)}")
+        args = k4_inputs(kernels, enc, dev, sig, cfg, stride, lb, db, nd, enc._coarse_topc(cfg))
+        checks[key] = k4_check(kernels, key, args, stride, cfg, **slow)
+    # a stack of 16 at tile 512, damped: one launch, each file its single launch
+    cfg = port.EncoderConfig(tile_size=512, objective="damped")
+    sig = signals[10.0]
+    _, _, nd, lb, db = enc._prep_signal(sig, cfg)
+    stride = enc._plan_search(cfg, lb // cfg.range_size, db)[1]
+    ranges, bank, nv, lobes = k4_inputs(kernels, enc, dev, sig, cfg, stride, lb, db, nd, 4,
+                                        files=PACK_FILES)
+    geo = (stride, cfg.objective, cfg.s_clip)
+    got = kernels.staged_refine(ranges, bank, nv, lobes, *geo)
+    for b in range(PACK_FILES):
+        one = kernels.staged_refine(ranges[b], bank[b], nv[b : b + 1], lobes[b], *geo)
+        if not (torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1])):
+            raise AssertionError(f"K4 stack of 16: file {b} differs from its single launch")
+    check = k4_check(kernels, "K4 stack of 16 tile 512 damped", (ranges, bank, nv, lobes),
+                     stride, cfg, **slow)
+    single_ms = graph_ms(lambda: kernels.staged_refine(ranges[0], bank[0], nv[:1], lobes[0],
+                                                       *geo))
+    checks["k4_stack16_tile512_damped"] = {
+        **check, "files": PACK_FILES, "single_launch_ms": single_ms,
+        "stack_over_singles": check["ms"] / (PACK_FILES * single_ms)}
+
+
 def mesh_kernel_checks(kernels, enc, dev, sig, stream_sig, checks):
     """K1, K3 and K2 at the shapes a cell of mesh_phase's meshes gives
     them, each against its plain version on the card with no differing row
@@ -1156,8 +1352,10 @@ def stream_phase(port, kernels, smi, sig):
         res, launches, stats, times = stream_run(port, kernels, sig, 3, objective="damped")
         peak = torch.cuda.max_memory_allocated() / 2**20
         if launches["topc_scan"] < 6 or min(launches["refine_window"],
-                                            launches["window_stats"]) < 5:
-            raise AssertionError(f"the damped stream did not launch K3 x6 and K2 x5: {launches}")
+                                            launches["window_stats"]) < 5 or (
+                launches["staged_refine"] != 1):
+            raise AssertionError(f"the damped stream did not launch K3 x6, K2 x5 and K4 once "
+                                 f"(its pass): {launches}")
         sentinels = int((res[0]["idx"] < 0).sum())
         if res[2] != STREAM_RANGES or sentinels != STREAM_SENTINELS:
             raise AssertionError(f"damped stream: {sentinels} sentinels in {res[2]} ranges")
@@ -1173,7 +1371,8 @@ def stream_phase(port, kernels, smi, sig):
         prof = stream_profile(port, sig, objective="damped")[1]
         off, prof_off = stream_profile(port, sig, objective="damped", global_candidates=False)
         prof = {**prof, "without_pass": prof_off,
-                "global_pass_device_ms": prof["device_ms"] - prof_off["device_ms"]}
+                "global_pass_device_ms": prof["device_ms"] - prof_off["device_ms"],
+                "global_pass_device_events": prof["device_events"] - prof_off["device_events"]}
         snr_off = stream_damped_decode(port, tmp, "damped_off", sig, off)[0]
         if snr - snr_off <= 3.0:
             raise AssertionError(f"the global pass gained {snr - snr_off} dB, not > 3")
@@ -1193,8 +1392,10 @@ def stream_phase(port, kernels, smi, sig):
         torch.cuda.reset_peak_memory_stats()
         res, launches, stats, times = stream_run(port, kernels, sig, 3)
         peak = torch.cuda.max_memory_allocated() / 2**20
-        if min(launches[k] for k in ("search_scan", "refine_window", "window_stats")) < 5:
-            raise AssertionError(f"the balanced stream did not launch K1 x5 and K2 x5: {launches}")
+        if min(launches[k] for k in ("search_scan", "refine_window", "window_stats")) < 5 or (
+                launches["staged_refine"]):
+            raise AssertionError(f"the balanced stream did not launch K1 x5 and K2 x5 (and no "
+                                 f"K4): {launches}")
         rec, _, n_ranges, rs, tile, step, thr, olen = res
         sentinels = int((rec["idx"] < 0).sum())
         if n_ranges != STREAM_RANGES or sentinels != STREAM_SENTINELS:
@@ -1547,7 +1748,7 @@ def packed_phase(port, kernels, enc, smi):
              ("packed_damped", ten + packed_signals(7.0, 1, seed0=99),
               {"objective": "damped"}, "topc_scan", 2),
              ("packed_exact", packed_signals(0.5, PACK_FILES, seed0=200), {}, "search_scan", 1),
-             # a stack whose refine is the staged one, file by file after one K3 launch
+             # a stack whose refine is the staged one: K3, then K4, once each per stack
              ("packed_staged", ten + packed_signals(7.0, 1, seed0=99),
               {"tile_size": 512, "objective": "damped"}, "topc_scan", 2)]
     for phase, sigs, kw, scan, stacks in cases:
@@ -1564,7 +1765,7 @@ def packed_phase(port, kernels, enc, smi):
         if (plan[2] == "staged") != (phase == "packed_staged"):
             raise AssertionError(f"{phase}: the plan is {plan}")
         want = {**dict.fromkeys(launches, 0), scan: stacks, "refine_window": k2,
-                "window_stats": k2}
+                "window_stats": k2, "staged_refine": stacks if plan[2] == "staged" else 0}
         if launches != want:
             raise AssertionError(f"{phase}: launches {launches}, expected one of each kernel "
                                  f"per stack: {want}")
@@ -1632,8 +1833,10 @@ def staged_phase(port, kernels, smi):
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**20
         scan = "topc_scan" if kw.get("objective") == "damped" else "search_scan"
-        if launches[scan] != 1 or launches["refine_window"] or launches["window_stats"]:
-            raise AssertionError(f"staged {name}: launches {launches}")
+        if launches[scan] != 1 or launches["refine_window"] or launches["window_stats"] or (
+                launches["staged_refine"] != 1):
+            raise AssertionError(f"staged {name}: launches {launches}, expected {scan} and K4 "
+                                 "once each")
         rec, bank, n_ranges, rs, *_, olen = res
         sentinels = int((rec["idx"] < 0).sum())
         if n_ranges != case["n_ranges"] or sentinels != case["sentinels"]:
@@ -1685,7 +1888,7 @@ def wide_phase(port, kernels, smi, sig):
         first_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         scan = "topc_scan_wide" if kw.get("objective") == "damped" else "search_scan_wide"
-        want = {**dict.fromkeys(launches, 0), scan: 1}
+        want = {**dict.fromkeys(launches, 0), scan: 1, "staged_refine": int(plan[2] == "staged")}
         if launches != want:
             raise AssertionError(f"wide {name}: launches {launches}, expected {want}")
         rec, bank, n_ranges, rs, *_, olen = res
@@ -1718,7 +1921,8 @@ def wide_phase(port, kernels, smi, sig):
         for tile, ((prec, pbank), res) in api.items():
             path, mine = d / f"t{tile}.fwav", d / f"api{tile}.fwav"
             launches, wall, _, _ = cli_call(kernels, ["compress", wav, path, "--tile", tile])
-            need(f"cli --tile {tile}", launches, {"search_scan_wide": 1})
+            need(f"cli --tile {tile}", launches,
+                 {"search_scan_wide": 1, "staged_refine": int(tile == 8192)})
             port.save_compressed(mine, prec, pbank, res[3], 44100, 2, *res[4:])
             if path.read_bytes() != mine.read_bytes():
                 raise AssertionError(f"cli --tile {tile}: the file differs from the API's")
@@ -1736,6 +1940,11 @@ def wide_phase(port, kernels, smi, sig):
 
 #: Calls of each captured path timed eager and replayed, in turns.
 GRAPH_TIMED_CALLS = 12
+#: The graphs phase's staged-plan cases (K4) and the numbers their replays
+#: are held to.
+STAGED_GRAPHS = {"single_tile512": STAGED["tile512_balanced"],
+                 "single_tile512_damped": STAGED["tile512_damped"],
+                 "single_tile8192": WIDE["tile8192_balanced"]}
 
 
 @contextlib.contextmanager
@@ -1762,7 +1971,8 @@ KERNEL_KEYS = (("search_scan_wide_kernel", "search_scan_wide"),
                ("topc_scan_wide_kernel", "topc_scan_wide"),
                ("topc_scan_kernel", "topc_scan"),
                ("refine_window_kernel", "refine_window"),
-               ("window_stats_kernel", "window_stats"))
+               ("window_stats_kernel", "window_stats"),
+               ("staged_refine_kernel", "staged_refine"))
 
 
 def traced_kernels(fn):
@@ -1805,8 +2015,8 @@ def graphs_phase(port, kernels, smi, sig, stream_sig):
     def single(s, **kw):
         return lambda: port.compress_audio_arrays(s, 44100, 2, device="cuda", **kw)
 
-    def packed(sigs):
-        return lambda: port.compress_audio_packed(sigs, 44100, 2, device="cuda")
+    def packed(sigs, **kw):
+        return lambda: port.compress_audio_packed(sigs, 44100, 2, device="cuda", **kw)
 
     def streamed(**kw):
         return lambda: port.compress_audio_streaming(stream_sig, 44100, 2, device="cuda",
@@ -1815,8 +2025,14 @@ def graphs_phase(port, kernels, smi, sig, stream_sig):
     cases = [("single_default", single(sig), "single"),
              ("single_damped", single(sig, objective="damped"), "single"),
              ("single_exact_clip", single(clips[0]), "single"),
+             ("single_tile512", single(sig, tile_size=512), "single"),
+             ("single_tile512_damped", single(sig, tile_size=512, objective="damped"),
+              "single"),
+             ("single_tile8192", single(sig, tile_size=8192), "single"),
              ("packed_10s", packed(ten), "packed"),
              ("packed_clips", packed(clips), "packed"),
+             ("packed_tile512_damped", packed(ten, tile_size=512, objective="damped"),
+              "packed"),
              ("stream_balanced", streamed(), "stream"),
              ("stream_damped", streamed(objective="damped"), "stream")]
     for name, fn, kind in cases:
@@ -1870,6 +2086,16 @@ def graphs_phase(port, kernels, smi, sig, stream_sig):
             report[name]["records_snr_db"] = snr
         if kind == "stream" and int((replayed[0]["idx"] < 0).sum()) != STREAM_SENTINELS:
             raise AssertionError(f"graphs {name}: the sentinels differ")
+        if name in STAGED_GRAPHS:  # the staged plan's replays: STAGED's and WIDE's numbers
+            case = STAGED_GRAPHS[name]
+            rec = replayed[0]
+            snr = port.compute_snr(sig, port.decompress_audio(
+                rec, replayed[1], replayed[2], replayed[3], original_len=replayed[7],
+                device="cuda", **case["decode"]))
+            if int((rec["idx"] < 0).sum()) != case["sentinels"] or abs(
+                    snr - case["snr_db"]) > SNR_TOL_DB:
+                raise AssertionError(f"graphs {name}: SNR {snr} dB")
+            report[name]["snr_db"] = snr
 
     # the enqueue, eager and replayed in turns (host clock)
     def enqueue_ms(fn):
@@ -1886,6 +2112,8 @@ def graphs_phase(port, kernels, smi, sig, stream_sig):
     for name, fn, reps in (("single_default", single(sig), GRAPH_TIMED_CALLS),
                            ("single_damped", single(sig, objective="damped"),
                             GRAPH_TIMED_CALLS),
+                           ("single_tile512_damped",
+                            single(sig, tile_size=512, objective="damped"), GRAPH_TIMED_CALLS),
                            ("packed_10s", packed(ten), 3)):
         e, r = [], []
         for _ in range(reps):
@@ -2205,7 +2433,7 @@ def cli_phase(port, kernels, smi, sig, stream_sig, api_files):
                 ("cli_stream_balanced", [], STREAM_BALANCED_SNR_DB,
                  {"search_scan": 5, "refine_window": 5, "window_stats": 5}),
                 ("cli_stream_damped", ["--compact"], STREAM_DAMPED_SNR_DB,
-                 {"topc_scan": 6, "refine_window": 5, "window_stats": 5})):
+                 {"topc_scan": 6, "refine_window": 5, "window_stats": 5, "staged_refine": 1})):
             fwav = d / f"{name}.fwav"
             launches = call(f"compress 100 s {flags}", ["compress", wav100, fwav, *flags],
                             seconds)[0]
@@ -2458,7 +2686,7 @@ def mesh_phase(port, kernels, smi, sig, stream_sig, api_files):
         for obj, want in (("balanced", {"search_scan": 20, "refine_window": 20,
                                         "window_stats": 20}),
                           ("damped", {"topc_scan": 21, "refine_window": 20,
-                                      "window_stats": 20})):
+                                      "window_stats": 20, "staged_refine": 1})):
             single = lambda obj=obj: port.compress_audio_streaming(
                 stream_sig, 44100, 2, objective=obj, device="cuda")
             one = single()

@@ -18,9 +18,9 @@ Where the JAX kernel path leaves its window-refine kernel (a coarse stride
 that is no multiple of 128: tile sizes under 1024; domain_step over 1:
 tile 2048; a bank over the 9 MB means cap: files over ~53 s), so does the
 port, by the same gates (`_plan_search`): K1 or K3 scans the subsampled
-rows of the full device bank and the staged window refine of
-ops/search.py (torch ops; it has no kernel in the JAX package either)
-refines around the lobes. "topk", the reference-shaped compatibility
+rows of the full device bank and K4 (ops/kernels.py staged_refine, the
+staged window refine, which XLA fuses in the JAX package) refines around
+the lobes, once per stack. "topk", the reference-shaped compatibility
 mode that "auto" never picks, is the JAX package's embedding shortlist
 (ops/search.py topk_search_block): torch ops, no kernel, as it has no
 Pallas kernel there either.
@@ -46,12 +46,11 @@ per stack, with the file as the slowest axis of its grid, and one file's
 codes do not depend on its neighbours. The streaming encode
 (models/stream.py) runs one more device program, `encode_core_global`,
 the counterpart of the JAX core's mode="global" (the whole-file
-global-candidate pass: K3 nomination, then the staged window refine of
-ops/search.py).
+global-candidate pass: K3 nomination, then K4 over every lobe column).
 
 The counts of a file ride in a device `meta` tensor, one JAX `meta` row
 per file, so a program reads none of them on the host. On one card,
-under the plans "exact" and "coarse" with the window refine (`_captured`),
+under the plans "exact" and "coarse" (`_captured`),
 the program of a shape key (`_core_key`, the JAX package's cache key) is
 captured once, on the key's second call, as a CUDA graph and replayed for
 every later call of that key, every length of the bucket
@@ -75,6 +74,7 @@ from ..ops.kernels import (
     refine_blocks_ok,
     refine_window,
     search_scan,
+    staged_refine,
     topc_scan,
 )
 from ..ops.dct import multi_head_embedding_batch
@@ -83,7 +83,6 @@ from ..ops.search import (
     domain_thresh,
     domain_weights,
     merge_shard_bests,
-    refine_from_lobes,
     topk_scores_block,
     topk_search_block,
 )
@@ -279,12 +278,11 @@ def _core_key(cfg: EncoderConfig, nb: int, lb: int, db: int, mode: str, in_i16: 
 def _captured(cfg: EncoderConfig, lb: int, db: int, mesh) -> bool:
     """Whether a program runs as a captured graph (models/program.py): on
     a one-cell mesh of a CUDA device of this process, under the plans
-    "exact" and "coarse" with the window refine. The staged refine, topk,
-    meshes of several cells and the global pass stay eager, by their plan."""
+    "exact" and "coarse" (the window refine, K2, or the staged one, K4).
+    topk, meshes of several cells and the global pass stay eager."""
     if mesh.size != 1 or mesh.multi_process or mesh.first_local_device().type != "cuda":
         return False
-    mode, _, refine = _plan_search(cfg, lb // cfg.range_size, db)
-    return mode == "exact" or (mode == "coarse" and refine == "window")
+    return _plan_search(cfg, lb // cfg.range_size, db)[0] in ("exact", "coarse")
 
 
 def _check_counts(cfg: EncoderConfig, lb: int, db: int, n_domains) -> None:
@@ -304,23 +302,6 @@ def _norm(raw):
     rawf = raw.to(torch.float32)
     scale = rawf.abs().amax(dim=-1)
     return rawf, torch.where(scale > 0, torch.reciprocal(scale), 1.0)
-
-
-def _staged_refine(ranges, bank, n_domains: int, lobes, stride: int, cfg: EncoderConfig):
-    """The staged window refine of one file over its full bank, in range
-    blocks of the JAX lax.map's size (they bound the gathered rows: C * W a
-    range). Every lobe column goes into one call, as the JAX package's
-    coarse_refine_search passes them: with one column and stride >= 32 the
-    staged (16, 4) descent runs, with C columns all C * W rows are scored.
-    Returns (idx (M,) int32, score (M,) float32)."""
-    mb = ranges.shape[0]
-    rblk = _pow2_divisor(mb, cfg.range_block)
-    out = [
-        refine_from_lobes(ranges[r0 : r0 + rblk], bank, n_domains,
-                          lobes[r0 : r0 + rblk], stride, cfg.s_clip, cfg.objective)
-        for r0 in range(0, mb, rblk)
-    ]
-    return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
 
 
 def _topk_search(ranges, bank, valid, cfg: EncoderConfig):
@@ -348,16 +329,14 @@ def _topk_search(ranges, bank, valid, cfg: EncoderConfig):
 
 
 def _run_search(ranges, raw_norm, nd, db: int, cfg: EncoderConfig,
-                search_mode: str, stride: int, refine, n_domains=None):
+                search_mode: str, stride: int, refine):
     """(idx, score), each (B, M), of a stack: ranges (B, M, n), raw_norm
-    (B, nb), nd the files' domain counts on the device (B,); n_domains,
-    the same as host ints, only for the staged refine, which sizes its
-    blocks by them (the other plans read nd alone, so that a captured
-    program bakes in no count). K1 over the whole bank ("exact"),
-    or K1 (one lobe) or K3 (several) over the subsampled bank, then around
-    every lobe K2 once (refine "window") or the staged refine over the full
-    bank, file by file ("staged"). Each kernel is one launch per stack.
-    "topk" launches none of them: torch ops, file by file."""
+    (B, nb), nd the files' domain counts on the device (B,), which every
+    plan reads there, so that a captured program bakes in no count. K1 over
+    the whole bank ("exact"), or K1 (one lobe) or K3 (several) over the
+    subsampled bank, then around every lobe K2 (refine "window") or K4, the
+    staged refine over the full bank ("staged"). Each kernel is one launch
+    per stack. "topk" launches none of them: torch ops, file by file."""
     n = cfg.range_size
     dev = ranges.device
     nd = nd[:, None]
@@ -413,11 +392,10 @@ def _run_search(ranges, raw_norm, nd, db: int, cfg: EncoderConfig,
             cfg.objective, cfg.s_clip,
         )
         return r_idx, r_score
-    per_file = [
-        _staged_refine(ranges[b], bank[b], int(n_domains[b]), lobes[b], stride, cfg)
-        for b in range(ranges.shape[0])
-    ]
-    return torch.stack([f[0] for f in per_file]), torch.stack([f[1] for f in per_file])
+    # every lobe column in one call, as the JAX package's coarse_refine_search
+    # passes them: one column at stride >= 32 descends, C columns are dense
+    return staged_refine(ranges, bank, nd[:, 0].to(torch.int32).contiguous(), lobes, stride,
+                         cfg.objective, cfg.s_clip)
 
 
 def _pack_out(ranges, idx, score, nr, inv, cfg: EncoderConfig, row0: int = 0):
@@ -467,13 +445,12 @@ def _front_packed(raw, meta, lb: int, cfg: EncoderConfig):
     return ranges, rawf * inv[:, None], nr, nd, inv
 
 
-def _program_raw(raw, meta, lb: int, db: int, cfg: EncoderConfig, n_domains=None):
+def _program_raw(raw, meta, lb: int, db: int, cfg: EncoderConfig):
     """The raw program of a stack on raw's device: (B, lb // range_size,
     3) codes from raw (B, nb) and meta (B, 3) on the device, with nothing
-    of the counts on the host (n_domains, host ints, only where the plan
-    is the staged refine). What models/program.py captures."""
+    of the counts on the host. What models/program.py captures."""
     return _mesh_program(Mesh([[raw.device]]), lambda d: _front_packed(raw, meta, lb, cfg),
-                         lb, db, cfg, n_domains)[0]
+                         lb, db, cfg)[0]
 
 
 def encode_core_packed(raw, meta, lb: int, db: int, cfg: EncoderConfig):
@@ -485,9 +462,8 @@ def encode_core_packed(raw, meta, lb: int, db: int, cfg: EncoderConfig):
     Each file is normalized, masked, cut into ranges and searched as it is
     alone; each kernel launches once for the stack. Eager: `_program_raw`
     of meta copied to the device, after the host checks of _check_counts."""
-    n_domains = [int(v) for v in meta[:, 2]]
-    _check_counts(cfg, lb, db, n_domains)
-    return _program_raw(raw, torch.from_numpy(meta).to(raw.device), lb, db, cfg, n_domains)
+    _check_counts(cfg, lb, db, [int(v) for v in meta[:, 2]])
+    return _program_raw(raw, torch.from_numpy(meta).to(raw.device), lb, db, cfg)
 
 
 def encode_core(raw, n_samples: int, n_ranges: int, n_domains: int, lb: int,
@@ -539,18 +515,17 @@ def encode_core_global(raw, mask_bytes, meta, local_rows, lb: int, db: int,
     codes when db < PACK3_MAX_ROWS, else int32 with -1 for none.
 
     K3 nominates the top-`topc` rows of the stride-subsampled whole-file
-    bank for every range; the staged window refine (ops/search.py
-    refine_from_lobes) refines each lobe column at full resolution, in
-    range blocks of the JAX lax.map's size, where a strict > lets the
-    earlier lobe win ties. The best is compared with the local winner's
-    gain on the same device bank. Returns, in the input's protocol, the
-    nominated row where it strictly beats a live local winner, else none."""
+    bank for every range; K4 (ops/kernels.py staged_refine, per_lobe)
+    refines each lobe column at full resolution in one launch, where a
+    strict > lets the earlier lobe win ties. The best is compared with the
+    local winner's gain on the same device bank. Returns, in the input's
+    protocol, the nominated row where it strictly beats a live local
+    winner, else none."""
     n = cfg.range_size
     mb = lb // n
     dev = raw.device
     n_domains = int(meta[3])
     dc = db // stride
-    grblk = _pow2_divisor(mb, cfg.range_block)
     packed = db < PACK3_MAX_ROWS
     rawf, inv, weighted = _mask_weighted(raw, mask_bytes)
     ranges = weighted[:lb].reshape(mb, n)  # the caller buckets nb >= lb
@@ -567,19 +542,11 @@ def encode_core_global(raw, mask_bytes, meta, local_rows, lb: int, db: int,
         domain_weights(sub_mean, sub_denom, n, cfg.objective), v_sub, topc,
         domain_thresh(sub_denom, cfg.objective, cfg.s_clip), cfg.s_clip,
     )
-    best_i = torch.zeros(mb, dtype=torch.int32, device=dev)
-    best_s = torch.full((mb,), float("-inf"), device=dev)
-    for r0 in range(0, mb, grblk):
-        rb = ranges[r0 : r0 + grblk]
-        bi, bs = best_i[r0 : r0 + grblk], best_s[r0 : r0 + grblk]
-        for c in range(topc):
-            i_c, s_c = refine_from_lobes(
-                rb, bank, n_domains, lobes[r0 : r0 + grblk, c : c + 1], stride,
-                cfg.s_clip, cfg.objective,
-            )
-            take = s_c > bs  # strict: the earlier lobe wins ties
-            bs.copy_(torch.where(take, s_c, bs))
-            bi.copy_(torch.where(take, i_c, bi))
+    # n_valid filled on the device: a copy from the host would wait for the
+    # stream (ops/affine.py row_mean)
+    n_valid = torch.full((1,), n_domains, dtype=torch.int32, device=dev)
+    best_i, best_s = staged_refine(ranges, bank, n_valid, lobes, stride, cfg.objective,
+                                   cfg.s_clip, per_lobe=True)
     # the local winner's gain on the SAME device bank: one float32 metric
     # on both sides of the comparison
     live = local_rows >= 0
@@ -696,7 +663,7 @@ def _topk_tp(slabs, shards, cfg: EncoderConfig):
     return torch.cat(idx_out), torch.cat(score_out)
 
 
-def _mesh_program(mesh, front, lb: int, db: int, cfg: EncoderConfig, n_domains=None):
+def _mesh_program(mesh, front, lb: int, db: int, cfg: EncoderConfig):
     """The device program of a stack over the (dp, tp) cells of `mesh` (the
     JAX core's `finish` and `pack_out`, with its dp/tp branches under
     shard_map; a one-cell mesh is the single-device program): the rows this
@@ -708,9 +675,7 @@ def _mesh_program(mesh, front, lb: int, db: int, cfg: EncoderConfig, n_domains=N
     the sub-slab's shape; under "exact" and "topk" each cell scans its bank
     row shard and the row merges. The merge and the codes are on the row's
     first cell. Every cell's work is enqueued on its own device with no
-    copy to the host. n_domains, the files' domain counts as host ints, is
-    needed only by the staged refine. Returns {row: (B, mloc, 3) uint8
-    codes}."""
+    copy to the host. Returns {row: (B, mloc, 3) uint8 codes}."""
     n = cfg.range_size
     dp, tp = _mesh_dims(mesh)
     mloc = lb // n // dp
@@ -733,7 +698,7 @@ def _mesh_program(mesh, front, lb: int, db: int, cfg: EncoderConfig, n_domains=N
         if split > 1:
             parts = [
                 _run_search(c[0][:, row0 + j * msub : row0 + (j + 1) * msub], c[1],
-                            c[3], db, cfg, *plan, n_domains)
+                            c[3], db, cfg, *plan)
                 for j, c in enumerate(cells)
             ]
             idx = torch.cat([p[0].to(dev0) for p in parts], dim=1)
@@ -753,7 +718,7 @@ def _mesh_program(mesh, front, lb: int, db: int, cfg: EncoderConfig, n_domains=N
                 score = torch.stack([f[1] for f in per_file])
         else:
             idx, score = _run_search(ranges0[:, row0 : row0 + mloc], raw_norm0, nd0, db,
-                                     cfg, *plan, n_domains)
+                                     cfg, *plan)
         out[i] = _pack_out(ranges0[:, row0 : row0 + mloc], idx, score, nr0, inv0, cfg, row0)
     return out
 
@@ -883,7 +848,7 @@ def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
                 meta = torch.from_numpy(meta_np).to(raw.device)
                 codes = _mesh_program(
                     mesh, lambda d: _front_packed(raw.to(d), meta.to(d), lb, cfg),
-                    lb, db, cfg, n_domains)
+                    lb, db, cfg)
                 codes = {i: v.transpose(0, 1) for i, v in codes.items()}
         with phase("d2h"):
             with phase("host_bank"):
@@ -1071,8 +1036,8 @@ def compress_audio_packed(
     dtype (16-bit-exact files ship as int16 and never share a stack with
     float32 ones). Each of K1 / K3, K2 and its table launches once per
     stack, with the file as the slowest axis of its grid
-    (encode_core_packed); where the geometry takes the staged refine
-    (_plan_search) that part runs file by file. The host builds each file's
+    (encode_core_packed), K4 where the geometry takes the staged refine
+    (_plan_search). The host builds each file's
     bank while the device runs, one copy brings the stack's codes back, and
     each file is finalized as the single-shot encoder does it, so every
     file's records equal compress_audio_arrays' exactly.

@@ -36,14 +36,17 @@ overwrite codes not yet fetched; `fill` waits for the last copy out of the
 pinned buffers before it writes them again. Fill and replay run on the
 caller's current stream.
 
-The cache holds GRAPH_CACHE_MAX programs and evicts the least recently
-used past that; each holds its graph's private memory pool: 4 MiB for a
-half-second clip's program, 26 MiB for a 10 s file's, 82 MiB for a
-minute's, 284 MiB for a stack of 16 ten-second files, 50 MiB for a 100 s
-stream's shard (measured on an H100, PERF.md §5). `PROGRAMS.stats()`
-shows the first calls, captures, replays and evictions, and per program
-its kernel, copy and memset nodes, its launches, capture time and pool
-size.
+The cache holds at most GRAPH_CACHE_MAX programs and GRAPH_CACHE_BYTES of
+their graphs' private memory pools, and evicts the least recently used
+past either when a call loads its program (never that program; the pool
+of a program captured by the call counts from the next call). A pool's
+size is read once, after its capture; it grows with the file, the files
+per stack and the plan: 26 MiB for a 10 s file's program, 248 MiB for a
+minute's (the staged plan), 3,076 MiB for a stack of 16 one-minute files
+(measured on an H100 by scripts/measure_program_pools.py, PERF.md §5).
+`PROGRAMS.stats()` shows the first calls, captures, replays and
+evictions, and per program its kernel, copy and memset nodes, its
+launches, capture time and pool size.
 """
 
 from __future__ import annotations
@@ -58,9 +61,14 @@ from ..ops import kernels
 
 #: Programs kept: one per shape key (bucket, config, mode, device, files
 #: per stack), the least recently used evicted past this count. A CLI
-#: batch of 48 files of 1 to 60 s made 21 keys on the default config
-#: (scripts/compare_cli_wall.py, PERF.md §5): 32 hold them all, with room.
+#: batch of 48 files of 1 to 60 s made 23 keys on the default config, 15
+#: of them captured (scripts/compare_cli_wall.py, PERF.md §5): 32 hold
+#: them all, with room.
 GRAPH_CACHE_MAX = 32
+#: Bytes of graph pools kept: a fifth of an 80 GB card, so that the eager
+#: run of a new key keeps its room beside them (a stack of 16 one-minute
+#: files holds gigabytes; PERF.md §5).
+GRAPH_CACHE_BYTES = 16 << 30
 #: Keys seen once (run eagerly, not captured) remembered, the least
 #: recently seen forgotten past this count.
 SEEN_MAX = 1024
@@ -115,6 +123,7 @@ class Program:
         self.nodes: dict = {}
         self.warmup_s = self.capture_s = None
         self.replays = 0
+        self.pool = 0  # bytes of the graph's pool, once captured
 
     def fill(self, host_inputs) -> None:
         """Copy the host arrays into the static inputs (through the pinned
@@ -179,6 +188,7 @@ class Program:
         self.graph, self.output, self.launches = graph, output, launches
         self.nodes = graph_nodes(graph)
         self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+        self.pool = pool_bytes(graph)
         return out
 
     def release(self) -> None:
@@ -186,13 +196,14 @@ class Program:
         if self.graph is not None:
             torch.cuda.current_stream(self.device).synchronize()
         self.graph = self.output = None
+        self.pool = 0
 
     def info(self, memory: bool = False) -> dict:
         out = {"nodes": dict(self.nodes), "launches": dict(self.launches),
                "warmup_s": self.warmup_s, "capture_s": self.capture_s,
                "replays": self.replays}
         if memory:
-            out["pool_bytes"] = None if self.graph is None else pool_bytes(self.graph)
+            out["pool_bytes"] = None if self.graph is None else self.pool
         return out
 
 
@@ -209,7 +220,8 @@ class FirstCall:
 
 
 class ProgramCache:
-    """Programs by key, least recently used evicted past `capacity`.
+    """Programs by key, least recently used evicted past `capacity`
+    programs or `max_bytes` of their pools (`Program.pool`).
     `make(device, host_inputs, build)` makes a program (Program). A key
     is captured on its second call: the keys seen once are remembered
     (the SEEN_MAX most recent), not captured; an evicted key starts
@@ -217,6 +229,7 @@ class ProgramCache:
 
     def __init__(self, capacity: int = GRAPH_CACHE_MAX, make=Program):
         self.capacity = capacity
+        self.max_bytes = GRAPH_CACHE_BYTES
         self._make = make
         self._entries: collections.OrderedDict = collections.OrderedDict()
         self._seen: collections.OrderedDict = collections.OrderedDict()
@@ -242,7 +255,9 @@ class ProgramCache:
         else:
             self.hits += 1
         self._entries[key] = prog
-        while len(self._entries) > self.capacity:
+        while len(self._entries) > 1 and (
+                len(self._entries) > self.capacity
+                or sum(p.pool for p in self._entries.values()) > self.max_bytes):
             _, old = self._entries.popitem(last=False)
             old.release()
             self.evictions += 1
@@ -266,7 +281,8 @@ class ProgramCache:
         kind, launches per run, the seconds of its warm-up (the eager run
         of the capturing call) and of its capture and instantiation,
         replays and, with `memory`, its pool's bytes."""
-        return {"capacity": self.capacity, "entries": len(self._entries),
+        return {"capacity": self.capacity, "max_bytes": self.max_bytes,
+                "entries": len(self._entries),
                 "first_calls": self.first_calls,
                 "captures": self.captures, "replays": self.hits,
                 "evictions": self.evictions,

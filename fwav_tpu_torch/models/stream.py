@@ -411,7 +411,7 @@ def compress_audio_streaming(
                     codes = _mesh_program(
                         mesh,
                         lambda d: _front_masked(raw.to(d), mask.to(d), meta.to(d), lb, cfg),
-                        lb, db, cfg, [n_dom_w],
+                        lb, db, cfg,
                     )
             timer.record(1)
             timer.lap("enqueue_ms")

@@ -19,10 +19,20 @@ kernels:
   comes from `window_stats`, a kernel of its own. CUDA source:
   csrc/refine_window.cu.
 
+and one kernel with no Pallas counterpart:
+
+- `staged_refine` (K4) replaces XLA's fusion of the JAX package's
+  `refine_from_lobes` (fwav_tpu/ops/search.py:470) inside its compiled
+  encode core: the staged window refine around coarse lobes over the full
+  bank, where the window-refine kernel's gates refuse a geometry, in the
+  whole-file global pass (each lobe column alone, merged with a strict >)
+  and in coarse_refine_search. CUDA source: csrc/staged_refine.cu.
+
 Each wrapper dispatches on the device of its tensors: a CPU tensor takes
 the plain PyTorch version (`search_scan_ref`, `topc_scan_ref`,
-`refine_window_ref`, `window_stats_ref`), a CUDA tensor launches the
-kernel or raises. The plain versions are the spec, and on the same inputs
+`refine_window_ref`, `window_stats_ref`, `staged_refine_ref`, which runs
+`refine_from_lobes`, defined here), a CUDA tensor launches the kernel or
+raises. The plain versions are the spec, and on the same inputs
 each kernel agrees with its plain version bit for bit: K2 computes in its
 order of operations; K1 and K3 screen every pair on the tensor cores
 within a proven margin and confirm the pairs that can win in its float32
@@ -31,7 +41,8 @@ kernel: K1's and K3's wide kernels under their own keys.
 
 Every wrapper and every plain version also takes a stack of files: the
 same arguments with a leading file axis B on every tensor (and one n_valid
-per file for K2, ints or an int32 tensor on the device). On the card a
+per file for K2, ints or an int32 tensor on the device, and for K4 an int32
+tensor on the device). On the card a
 stack is ONE launch, with the file as the slowest axis of the kernel's
 grid; a single file is the B = 1 case of the same kernel. Each file is
 scanned against its own bank and no reduction crosses files, so a file's
@@ -49,15 +60,16 @@ import ctypes
 import numpy as np
 import torch
 
-from .affine import row_mean
+from .affine import row_mean, row_sum
 
 _NEG = float("-inf")
+_EPS = 1e-12
 
 #: Kernel launches since the last reset, per kernel (CPU calls, which take
 #: the plain versions, are not counted). The wide K1 and K3 (range sizes
 #: over 16) count under "search_scan_wide" and "topc_scan_wide".
 LAUNCHES = {"search_scan": 0, "topc_scan": 0, "refine_window": 0, "window_stats": 0,
-            "search_scan_wide": 0, "topc_scan_wide": 0}
+            "search_scan_wide": 0, "topc_scan_wide": 0, "staged_refine": 0}
 
 _OBJECTIVES = {"balanced": 0, "affine": 1, "damped": 2}
 #: Range sizes of K2 and its table (csrc/refine_window.cu). Wider ranges
@@ -691,3 +703,235 @@ def refine_window(means_ext, lobes, ranges, n_valid, stride: int,
     _build.check(lib, code, "refine_window")
     LAUNCHES["refine_window"] += 1
     return score, idx
+
+
+# --- K4 -------------------------------------------------------------------
+
+#: Ranges per block of staged_refine_ref: the blocks bound the gathered
+#: rows, as the JAX package's lax.map blocks (EncoderConfig.range_block) do.
+_STAGED_REF_BLOCK = 32768
+
+
+def domain_thresh(d_denom, objective: str, s_clip: float):
+    """Per-domain clip threshold t = s_clip * denom for "damped" (None for
+    every other objective): the optimal scale num/denom clips exactly when
+    |num| > t."""
+    if objective != "damped":
+        return None
+    return abs(s_clip) * d_denom
+
+
+def _gain_from_num(num, weight, thresh, s_clip):
+    """Selection gain of one orientation: num^2 * w, or with `thresh` the
+    clip-aware gain, c*(2|num| - t) where |num| > t (c = s_clip)."""
+    g = num * num * weight
+    if thresh is None:
+        return g
+    a = torch.abs(num)
+    c = abs(s_clip)
+    return torch.where(a > thresh, c * (2.0 * a - thresh), g)
+
+
+def _window_gains(r_c, bank, cand, valid, objective: str, s_clip):
+    """Gains and orientation pick of per-range candidate rows. r_c (N, M)
+    centered ranges, transposed; bank (D, N); cand (K, M) int64 rows in
+    [0, D); valid (K, M). Returns (score, use_m), each (K, M), score -inf
+    where not valid. The sums over N run left to right in the (N, K, M)
+    layout of the JAX function."""
+    N = r_c.shape[0]
+    K, M = cand.shape
+    tiles = bank.index_select(0, cand.reshape(-1)).T.reshape(N, K, M)
+
+    def over_n(x):  # (N, K, M) -> (K, M), left to right
+        return row_sum(x.movedim(0, -1))
+
+    d_mean = row_mean(tiles.movedim(0, -1))
+    d_c = tiles - d_mean[None]
+    denom = over_n(d_c * d_c) + _EPS
+    num_o = over_n(d_c * r_c[:, None, :])
+    num_m = over_n(d_c * r_c.flip(0)[:, None, :])
+    if objective == "balanced":
+        w = (denom - _EPS - N * d_mean * d_mean) / (denom * denom)
+    else:
+        w = torch.reciprocal(denom)
+    thresh = domain_thresh(denom - _EPS, objective, s_clip)
+    score_o = _gain_from_num(num_o, w, thresh, s_clip)
+    score_m = _gain_from_num(num_m, w, thresh, s_clip)
+    use_m = score_m > score_o  # strict: the original orientation wins ties
+    score = torch.where(use_m, score_m, score_o)
+    return torch.where(valid, score, _NEG), use_m
+
+
+def refine_from_lobes(ranges, bank, n_valid, coarse, stride: int,
+                      s_clip: float, objective: str = "balanced"):
+    """The window refine around coarse lobes, staged: ranges (M, N); bank
+    (D, N), the full bank with its rows from n_valid on invalid; coarse
+    (M, C) lobes in the stride-subsampled index space, -1 for none;
+    n_valid an int or an integer tensor of one element, read on the data's
+    device (so that a program built on it reads no count on the host).
+
+    The window of each lobe is W = stride + stride/4 rows starting at
+    lobe*stride - W/2, clamped to [0, n_valid - W]. With one lobe column
+    and stride >= 32 (the global pass always) the window is sampled at
+    step 16 and then 4 (8 alone for W < 64), each stage keeping the first
+    best sample, and only a dense window of step + 2 rows around the last
+    one is scored in full; otherwise all C*W rows are. Rows at or past
+    n_valid never win: padding rows score exactly 0, which beats a
+    negative balanced gain. Returns (idx (M,) int32, score (M,) float32)
+    of the first best candidate; the score is -inf where the range has no
+    lobe. The JAX function's refit outputs (s, o, sym, err) are not
+    ported: only the selection leaves the device and the host refits it.
+    The plain version of K4 (ops/kernels.py staged_refine), which runs it
+    over a stack on the card (staged_refine_ref)."""
+    M, N = ranges.shape
+    D = bank.shape[0]
+    dev = ranges.device
+    top_c = coarse.shape[1]
+    W = max(2, stride + stride // 4)
+    n_valid = torch.as_tensor(n_valid, device=dev).reshape(()).to(torch.int64)
+    last = (n_valid - 1).clamp(min=0)
+    lobe_ok = coarse >= 0                                        # (M, C)
+    starts = torch.minimum((coarse.to(torch.int64) * stride - W // 2).clamp(min=0),
+                           (n_valid - W).clamp(min=0))
+    cand = (starts.T[:, None, :]
+            + torch.arange(W, device=dev)[None, :, None]).reshape(top_c * W, M)
+    valid = lobe_ok.T[:, None, :].expand(top_c, W, M).reshape(top_c * W, M)
+    r_c = (ranges - row_mean(ranges)[:, None]).T                 # (N, M)
+    cols = torch.arange(M, device=dev)
+
+    if stride >= 32 and top_c == 1:
+        steps = (16, 4) if W >= 64 else (8,)
+        st = steps[0]
+        k1 = W // st + 1
+        mid = torch.minimum(starts.T[:, None, :]
+                            + (st * torch.arange(k1, device=dev))[None, :, None],
+                            last).reshape(top_c * k1, M)
+        v1 = lobe_ok.T[:, None, :].expand(top_c, k1, M).reshape(top_c * k1, M)
+        v1 = v1 & (mid < n_valid)
+        s1, _ = _window_gains(r_c, bank, mid.clamp(max=D - 1), v1, objective, s_clip)
+        center = mid[s1.argmax(0), cols]                         # first max
+        ok_any = lobe_ok.any(1)
+        for st2 in steps[1:]:
+            # cover center +/- st/2 at the finer step st2
+            u = st // 2
+            k = 2 * u // st2 + 1
+            mid = torch.minimum(((center[None, :] - u)
+                                 + st2 * torch.arange(k, device=dev)[:, None]).clamp(min=0),
+                                last)
+            vk = ok_any[None, :].expand(k, M) & (mid < n_valid)
+            sk, _ = _window_gains(r_c, bank, mid.clamp(max=D - 1), vk, objective, s_clip)
+            center = mid[sk.argmax(0), cols]
+            st = st2
+        # the dense final window: +/- st/2, with one row of margin
+        w2 = st + 2
+        starts2 = torch.minimum((center - w2 // 2).clamp(min=0), (n_valid - w2).clamp(min=0))
+        cand = starts2[None, :] + torch.arange(w2, device=dev)[:, None]
+        valid = ok_any[None, :].expand(w2, M)
+
+    valid = valid & (cand < n_valid)
+    cand = cand.clamp(max=D - 1)  # jnp.take's clamp, explicit here
+    score, _ = _window_gains(r_c, bank, cand, valid, objective, s_clip)
+    pick = score.argmax(0)                                       # first max
+    return cand[pick, cols].to(torch.int32), score[pick, cols]
+
+
+def staged_refine_ref(ranges, bank, n_valid, lobes, stride: int, objective: str = "balanced",
+                      s_clip: float = 16.0, per_lobe: bool = False):
+    """Plain PyTorch K4: refine_from_lobes, in blocks of _STAGED_REF_BLOCK
+    ranges (every range is refined on its own, so the result does not
+    depend on them). With `per_lobe` each lobe column is refined alone and
+    a later column takes a range only with a strictly higher score (the
+    global pass's merge); idx 0 and -inf where no column scores. n_valid is an int or an integer tensor, read on the data's
+    device. Returns (idx (M,) int32, score (M,) float32). A stack (ranges
+    (B, M, N), bank (B, D, N), lobes (B, M, C), n_valid B counts) is a loop
+    over its files; returns (B, M) each."""
+    dev = ranges.device
+    if ranges.dim() == 3:
+        nv = torch.as_tensor(n_valid, device=dev).reshape(-1)
+        per_file = [staged_refine_ref(ranges[b], bank[b], nv[b], lobes[b], stride, objective,
+                                      s_clip, per_lobe)
+                    for b in range(ranges.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*per_file))
+    idx, score = [], []
+    blk = _STAGED_REF_BLOCK
+    for r0 in range(0, ranges.shape[0], blk):
+        r, lob = ranges[r0 : r0 + blk], lobes[r0 : r0 + blk]
+        if not per_lobe:
+            i, s = refine_from_lobes(r, bank, n_valid, lob, stride, s_clip, objective)
+        else:
+            i = torch.zeros(r.shape[0], dtype=torch.int32, device=dev)
+            s = torch.full((r.shape[0],), _NEG, dtype=torch.float32, device=dev)
+            for c in range(lob.shape[1]):
+                i_c, s_c = refine_from_lobes(r, bank, n_valid, lob[:, c : c + 1], stride,
+                                             s_clip, objective)
+                take = s_c > s  # strict: the earlier lobe wins ties
+                s, i = torch.where(take, s_c, s), torch.where(take, i_c, i)
+        idx.append(i)
+        score.append(s)
+    return torch.cat(idx), torch.cat(score)
+
+
+def staged_refine(ranges, bank, n_valid, lobes, stride: int, objective: str = "balanced",
+                  s_clip: float = 16.0, per_lobe: bool = False):
+    """K4: the staged window refine around coarse lobes (see
+    staged_refine_ref and refine_from_lobes) over the full
+    bank. ranges (M, N) float32, 4 <= N <= 255 (not centred); bank (D, N)
+    float32, its rows from n_valid on invalid; lobes (M, C) int32 in the
+    stride-subsampled index space, -1 for none, any strides (K3's
+    transposed view included); n_valid an int32 tensor on the device of one
+    element. With one lobe column and stride >= 32 the staged descent runs,
+    else all C * W rows are scored; `per_lobe` refines each column alone
+    and keeps the earlier lobe on ties (the global pass). Returns (idx (M,)
+    int32, score (M,) float32).
+
+    A stack of files (a leading axis B on ranges, bank and lobes; n_valid
+    (B,)) is one launch, with the file as the slowest axis of the grid;
+    returns (B, M) each. n_valid is read from device memory, so nothing of
+    it is baked into a captured launch."""
+    dev = ranges.device
+    if dev.type == "cpu":
+        return staged_refine_ref(ranges, bank, n_valid, lobes, stride, objective, s_clip,
+                                 per_lobe)
+    if dev.type != "cuda":
+        raise ValueError(f"staged_refine: unsupported device {dev}")
+    if not torch.is_tensor(n_valid):
+        raise TypeError("staged_refine: n_valid must be an int32 tensor on the device")
+    if ranges.dim() == 2:
+        r, b, lob = _stack_of_one(ranges, bank, lobes)
+        idx, score = staged_refine(r, b, n_valid.reshape(1), lob, stride, objective, s_clip,
+                                   per_lobe)
+        return idx[0], score[0]
+    B, M, N = ranges.shape
+    if bank.dim() != 3 or bank.shape[0] != B or bank.shape[2] != N or lobes.dim() != 3 or (
+            lobes.shape[:2] != (B, M)):
+        raise ValueError("staged_refine: shapes disagree")
+    f32 = (torch.float32,)
+    _cuda_args("staged_refine", {"ranges": ranges, "bank": bank, "n_valid": n_valid},
+               [f32, f32, (torch.int32,)], dev)
+    if n_valid.shape != (B,):
+        raise ValueError(f"staged_refine: n_valid is {tuple(n_valid.shape)}, expected ({B},)")
+    if lobes.device != dev or lobes.dtype != torch.int32:
+        raise TypeError(f"staged_refine: lobes is {lobes.dtype} on {lobes.device}, "
+                        f"expected int32 on {dev}")
+    D, C = bank.shape[1], lobes.shape[2]
+    if (N not in _SCAN_N or M == 0 or D == 0 or C == 0 or stride < 1
+            or objective not in _OBJECTIVES or not 1 <= B <= 65535):
+        raise ValueError(f"staged_refine: no kernel for B={B}, M={M}, N={N}, D={D}, C={C}, "
+                         f"stride={stride}, objective={objective!r}")
+
+    from . import _build
+
+    lib = _build.load()
+    idx = torch.empty((B, M), dtype=torch.int32, device=dev)
+    score = torch.empty((B, M), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.fwav_staged_refine(
+            _ptr(ranges), B, M, N, _ptr(bank), D, _ptr(lobes), C, lobes.stride(0),
+            lobes.stride(1), lobes.stride(2), _ptr(n_valid), int(stride),
+            _OBJECTIVES[objective], int(per_lobe), np.float32(abs(float(s_clip))).item(),
+            _ptr(idx), _ptr(score), ctypes.c_void_p(stream),
+        )
+    _build.check(lib, code, "staged_refine")
+    LAUNCHES["staged_refine"] += 1
+    return idx, score

@@ -6,9 +6,12 @@ form), `coarse_refine_search`, `exact_search_block`, `merge_shard_bests`,
 the topk search (`_topk_merge_scan`, `topk_scores_block`,
 `topk_search_block`), the reference-shaped candidate
 helpers and, by name, `gain_topk_scan`. The scans themselves are the
-kernels in ops/kernels.py; the staged refine and the topk search have no
-kernel behind them in the JAX package either (jnp ops), so torch ops are
-their port.
+kernels in ops/kernels.py. The staged refine has no Pallas kernel behind
+it (jnp ops, which XLA fuses): `refine_from_lobes` is the plain version of
+the kernel that takes that fusion's place on the card, K4, so it lives
+beside the other plain versions in ops/kernels.py with `_window_gains`,
+`_gain_from_num` and `domain_thresh`, and is exported here under the JAX
+names. The topk search is torch ops, as it is jnp ops in the JAX package.
 
 The topk merge keeps the JAX order exactly: a shortlist is the top k by
 (score descending, domain index ascending), which is what lax.top_k's
@@ -23,7 +26,15 @@ import torch
 
 from .affine import affine_stats, batched_affine_match, row_mean, row_sum
 from .dct import ieee_fp32_matmul, multi_head_embedding_batch
-from .kernels import search_scan, topc_scan_ref
+from .kernels import (  # noqa: F401  (_gain_from_num, refine_from_lobes: the JAX names)
+    _gain_from_num,
+    _window_gains,
+    domain_thresh,
+    refine_from_lobes,
+    search_scan,
+    staged_refine,
+    topc_scan_ref,
+)
 
 _EPS = 1e-12
 _NEG = float("-inf")
@@ -40,26 +51,6 @@ def domain_weights(d_mean, d_denom, n: int, objective: str):
     return torch.reciprocal(denom_eps)
 
 
-def domain_thresh(d_denom, objective: str, s_clip: float):
-    """Per-domain clip threshold t = s_clip * denom for "damped" (None for
-    every other objective): the optimal scale num/denom clips exactly when
-    |num| > t."""
-    if objective != "damped":
-        return None
-    return abs(s_clip) * d_denom
-
-
-def _gain_from_num(num, weight, thresh, s_clip):
-    """Selection gain of one orientation: num^2 * w, or with `thresh` the
-    clip-aware gain, c*(2|num| - t) where |num| > t (c = s_clip)."""
-    g = num * num * weight
-    if thresh is None:
-        return g
-    a = torch.abs(num)
-    c = abs(s_clip)
-    return torch.where(a > thresh, c * (2.0 * a - thresh), g)
-
-
 def gain_topk_scan(r_c, bank_sub, d_weight, d_valid, top_c: int, domain_block: int = 512,
                    d_thresh=None, s_clip=None):
     """Top-C gain candidates per range over a (subsampled) bank, under the
@@ -72,102 +63,6 @@ def gain_topk_scan(r_c, bank_sub, d_weight, d_valid, top_c: int, domain_block: i
     return topc_scan_ref(r_c, bank_sub.T.contiguous(), d_weight, d_valid, top_c,
                          d_thresh, 0.0 if s_clip is None else s_clip,
                          domain_block=domain_block)
-
-
-def _window_gains(r_c, bank, cand, valid, objective: str, s_clip):
-    """Gains and orientation pick of per-range candidate rows. r_c (N, M)
-    centered ranges, transposed; bank (D, N); cand (K, M) int64 rows in
-    [0, D); valid (K, M). Returns (score, use_m), each (K, M), score -inf
-    where not valid. The sums over N run left to right in the (N, K, M)
-    layout of the JAX function."""
-    N = r_c.shape[0]
-    K, M = cand.shape
-    tiles = bank.index_select(0, cand.reshape(-1)).T.reshape(N, K, M)
-
-    def over_n(x):  # (N, K, M) -> (K, M), left to right
-        return row_sum(x.movedim(0, -1))
-
-    d_mean = row_mean(tiles.movedim(0, -1))
-    d_c = tiles - d_mean[None]
-    denom = over_n(d_c * d_c) + _EPS
-    num_o = over_n(d_c * r_c[:, None, :])
-    num_m = over_n(d_c * r_c.flip(0)[:, None, :])
-    if objective == "balanced":
-        w = (denom - _EPS - N * d_mean * d_mean) / (denom * denom)
-    else:
-        w = torch.reciprocal(denom)
-    thresh = domain_thresh(denom - _EPS, objective, s_clip)
-    score_o = _gain_from_num(num_o, w, thresh, s_clip)
-    score_m = _gain_from_num(num_m, w, thresh, s_clip)
-    use_m = score_m > score_o  # strict: the original orientation wins ties
-    score = torch.where(use_m, score_m, score_o)
-    return torch.where(valid, score, _NEG), use_m
-
-
-def refine_from_lobes(ranges, bank, n_valid: int, coarse, stride: int,
-                      s_clip: float, objective: str = "balanced"):
-    """The window refine around coarse lobes, staged: ranges (M, N); bank
-    (D, N), the full bank with its rows from n_valid on invalid; coarse
-    (M, C) lobes in the stride-subsampled index space, -1 for none.
-
-    The window of each lobe is W = stride + stride/4 rows starting at
-    lobe*stride - W/2, clamped to [0, n_valid - W]. With one lobe column
-    and stride >= 32 (the global pass always) the window is sampled at
-    step 16 and then 4 (8 alone for W < 64), each stage keeping the first
-    best sample, and only a dense window of step + 2 rows around the last
-    one is scored in full; otherwise all C*W rows are. Rows at or past
-    n_valid never win: padding rows score exactly 0, which beats a
-    negative balanced gain. Returns (idx (M,) int32, score (M,) float32)
-    of the first best candidate; the score is -inf where the range has no
-    lobe. The JAX function's refit outputs (s, o, sym, err) are not
-    ported: only the selection leaves the device and the host refits it."""
-    M, N = ranges.shape
-    D = bank.shape[0]
-    dev = ranges.device
-    top_c = coarse.shape[1]
-    W = max(2, stride + stride // 4)
-    last = max(n_valid - 1, 0)
-    lobe_ok = coarse >= 0                                        # (M, C)
-    starts = (coarse.to(torch.int64) * stride - W // 2).clamp(0, max(n_valid - W, 0))
-    cand = (starts.T[:, None, :]
-            + torch.arange(W, device=dev)[None, :, None]).reshape(top_c * W, M)
-    valid = lobe_ok.T[:, None, :].expand(top_c, W, M).reshape(top_c * W, M)
-    r_c = (ranges - row_mean(ranges)[:, None]).T                 # (N, M)
-    cols = torch.arange(M, device=dev)
-
-    if stride >= 32 and top_c == 1:
-        steps = (16, 4) if W >= 64 else (8,)
-        st = steps[0]
-        k1 = W // st + 1
-        mid = (starts.T[:, None, :]
-               + (st * torch.arange(k1, device=dev))[None, :, None]
-               ).reshape(top_c * k1, M).clamp(max=last)
-        v1 = lobe_ok.T[:, None, :].expand(top_c, k1, M).reshape(top_c * k1, M)
-        v1 = v1 & (mid < n_valid)
-        s1, _ = _window_gains(r_c, bank, mid.clamp(max=D - 1), v1, objective, s_clip)
-        center = mid[s1.argmax(0), cols]                         # first max
-        ok_any = lobe_ok.any(1)
-        for st2 in steps[1:]:
-            # cover center +/- st/2 at the finer step st2
-            u = st // 2
-            k = 2 * u // st2 + 1
-            mid = ((center[None, :] - u)
-                   + st2 * torch.arange(k, device=dev)[:, None]).clamp(0, last)
-            vk = ok_any[None, :].expand(k, M) & (mid < n_valid)
-            sk, _ = _window_gains(r_c, bank, mid.clamp(max=D - 1), vk, objective, s_clip)
-            center = mid[sk.argmax(0), cols]
-            st = st2
-        # the dense final window: +/- st/2, with one row of margin
-        w2 = st + 2
-        starts2 = (center - w2 // 2).clamp(0, max(n_valid - w2, 0))
-        cand = starts2[None, :] + torch.arange(w2, device=dev)[:, None]
-        valid = ok_any[None, :].expand(w2, M)
-
-    valid = valid & (cand < n_valid)
-    cand = cand.clamp(max=D - 1)  # jnp.take's clamp, explicit here
-    score, _ = _window_gains(r_c, bank, cand, valid, objective, s_clip)
-    pick = score.argmax(0)                                       # first max
-    return cand[pick, cols].to(torch.int32), score[pick, cols]
 
 
 def exact_search_block(ranges, bank, d_mean, d_denom, d_valid, domain_block: int,
@@ -228,7 +123,8 @@ def coarse_refine_search(ranges, bank, d_mean, d_denom, d_valid, stride: int, to
     the bank's stats (D,), or None to take them from the subsampled rows
     only. Returns (idx, s, o, sym, err), each (M,), err +inf where a range
     has no candidate; with return_score the selection score follows.
-    Torch ops on the inputs' device, as the JAX op is jnp ops."""
+    Torch ops on the inputs' device, as the JAX op is jnp ops, but for the
+    refine: K4 on a card, its plain version on the CPU."""
     M, N = ranges.shape
     D = bank.shape[0]
     assert D % stride == 0 and (D // stride) % domain_block == 0
@@ -246,8 +142,9 @@ def coarse_refine_search(ranges, bank, d_mean, d_denom, d_valid, stride: int, to
         thresh_sub = None if thresh is None else thresh[::stride]
     coarse = gain_topk_scan(r_c, bank_sub, weight_sub, d_valid[::stride], top_c,
                             domain_block, d_thresh=thresh_sub, s_clip=s_clip)
-    idx, score = refine_from_lobes(ranges, bank, int(d_valid.sum()), coarse, stride,
-                                   s_clip, objective)
+    n_valid = d_valid.sum().to(torch.int32).reshape(1)
+    idx, score = staged_refine(ranges, bank.contiguous(), n_valid, coarse.to(torch.int32),
+                               stride, objective, s_clip)
     out = _refit_winners(ranges, bank, idx, score, s_clip, objective)
     return (*out, score) if return_score else out
 

@@ -16,6 +16,12 @@ test file that compares record bytes with the JAX package) builds that
 library itself, to a temporary file renamed into place, whenever it is
 missing or older than its source, then loads both packages' libraries and
 raises if either is missing: never one side on the fallback alone.
+
+The module imports neither package at its top: the repository's root
+conftest.py builds the JAX package's library with `build_if_stale` in the
+xdist controller, before any worker starts and before tests/conftest.py
+pins JAX to the CPU, so nothing here may import jax or fwav_tpu until
+`ensure_native_libraries` runs.
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-from fwav_tpu.io import native as jax_native
-from fwav_tpu_torch.io import native as port_native
+#: The JAX package's native source and the library it builds beside it
+#: (fwav_tpu/io/native.py _SRC and _LIB).
+NATIVE_SRC = Path(__file__).resolve().parent.parent / "fwav_tpu" / "native" / "fwavio.cpp"
+NATIVE_LIB = NATIVE_SRC.with_name("libfwavio.so")
 
 
 def _build_atomically(src: Path, lib: Path) -> None:
@@ -46,9 +54,23 @@ def _stale(src: Path, lib: Path) -> bool:
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
+def build_if_stale(src: Path = NATIVE_SRC, lib: Path = NATIVE_LIB) -> bool:
+    """Build `lib` from `src` atomically when it is missing or older than
+    its source; returns whether it built."""
+    if not _stale(src, lib):
+        return False
+    _build_atomically(src, lib)
+    return True
+
+
 def ensure_native_libraries() -> None:
+    from fwav_tpu.io import native as jax_native
+    from fwav_tpu_torch.io import native as port_native
+
     src = Path(jax_native._SRC).resolve()
     lib = Path(jax_native._LIB).resolve()
+    if (src, lib) != (NATIVE_SRC, NATIVE_LIB):
+        raise RuntimeError(f"the JAX package's native paths moved: {src}, {lib}")
     if shutil.which("g++") is None:
         raise RuntimeError("g++ is missing: the native libraries cannot be built, and "
                            "a parity test of record bytes needs both")

@@ -32,6 +32,8 @@ pytestmark = pytest.mark.cuda
 
 #: The wide K1 and K3 (range sizes over 16), which these paths never launch.
 NO_WIDE = {"search_scan_wide": 0, "topc_scan_wide": 0}
+#: K4, the staged refine, which the window-refine paths never launch.
+NO_K4 = {"staged_refine": 0}
 
 
 @pytest.fixture
@@ -204,7 +206,7 @@ def test_slice_on_the_card_matches_the_host():
     kernels.reset_launch_counts()
     gpu = port.compress_audio_arrays(sig, 44100, 2, device="cuda")
     assert kernels.LAUNCHES == {"search_scan": 1, "topc_scan": 0, "refine_window": 1,
-                                "window_stats": 1, **NO_WIDE}
+                                "window_stats": 1, **NO_WIDE, **NO_K4}
     cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
 
@@ -287,7 +289,7 @@ def test_damped_slice_on_the_card_matches_the_host():
     kernels.reset_launch_counts()
     gpu = port.compress_audio_arrays(sig, 44100, 2, objective="damped", device="cuda")
     assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 1, "refine_window": 1,
-                                "window_stats": 1, **NO_WIDE}
+                                "window_stats": 1, **NO_WIDE, **NO_K4}
     cpu = port.compress_audio_arrays(sig, 44100, 2, objective="damped", device="cpu")
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
 
@@ -338,10 +340,10 @@ def test_stream_on_the_card_matches_the_host(dev, objective):
     cpu = port.compress_audio_streaming(sig, 44100, 2, device="cpu", **kw)
     if objective == "damped":
         assert launches == {"search_scan": 0, "topc_scan": 6, "refine_window": 5,
-                            "window_stats": 5, **NO_WIDE}
+                            "window_stats": 5, **NO_WIDE, "staged_refine": 1}
     else:
         assert launches == {"search_scan": 5, "topc_scan": 0, "refine_window": 5,
-                            "window_stats": 5, **NO_WIDE}
+                            "window_stats": 5, **NO_WIDE, **NO_K4}
     np.testing.assert_array_equal(gpu[0]["idx"] < 0, cpu[0]["idx"] < 0)
     assert int((gpu[0]["idx"] != cpu[0]["idx"]).sum()) <= 2 * -(-len(cpu[0]) // 1024)
 
@@ -471,8 +473,8 @@ def test_refine_window_refuses_a_stack_over_16_files(dev):
 def test_packed_encode_on_the_card_equals_the_single_encodes(dev, kw, refine):
     """A stack of three 3 s files of one bucket and one shorter file: every
     file's result equals its own single encode on the card exactly, the
-    scan kernel launches once per stack, and K2 with its table only where
-    the plan takes the window refine."""
+    scan kernel launches once per stack, and K2 with its table where the
+    plan takes the window refine, else K4 once per stack."""
     from fwav_tpu_torch.models import encode as enc
 
     base = bench.make_signal(3.0)
@@ -491,7 +493,7 @@ def test_packed_encode_on_the_card_equals_the_single_encodes(dev, kw, refine):
     scan = "topc_scan" if cfg.objective == "damped" else "search_scan"
     k2 = 2 if refine == "window" else 0
     assert launches[scan] == 2 and launches["refine_window"] == k2
-    assert launches["window_stats"] == k2
+    assert launches["window_stats"] == k2 and launches["staged_refine"] == 2 - k2
     for sig, got in zip(sigs, packed):
         one = port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
         np.testing.assert_array_equal(got[0].view(np.uint8), one[0].view(np.uint8))
@@ -550,13 +552,13 @@ def test_topk_on_the_card_matches_the_host(dev):
 
 @pytest.mark.parametrize("seconds,kw,launches", [
     (2.0, {}, {"search_scan": 4, "topc_scan": 0, "refine_window": 4, "window_stats": 4,
-               **NO_WIDE}),
+               **NO_WIDE, **NO_K4}),
     (2.0, {"objective": "damped"},
      {"search_scan": 0, "topc_scan": 4, "refine_window": 4, "window_stats": 4,
-      **NO_WIDE}),
+      **NO_WIDE, **NO_K4}),
     (0.5, {"search": "exact"},
      {"search_scan": 4, "topc_scan": 0, "refine_window": 0, "window_stats": 0,
-      **NO_WIDE}),
+      **NO_WIDE, **NO_K4}),
 ])
 def test_repeated_card_mesh_matches_one_device(dev, seconds, kw, launches):
     """A (2, 2) mesh of four cells on cuda:0 (parallel/mesh.py) gives the
@@ -676,12 +678,16 @@ def test_window_refine_refuses_wide_ranges(dev):
                                 {"tile_size": 16384}])
 def test_wide_tile_encode_on_the_card_matches_the_host(dev, kw):
     """Range sizes 32 and 64 on the card: one launch of the wide K1 or
-    K3, counted under its own key, and the host run's records."""
+    K3, counted under its own key, then on the coarse plan K4 once (3 s
+    takes the exact plan unless asked for "coarse"), and the host run's
+    records."""
     sig = bench.make_signal(3.0)
     kernels.reset_launch_counts()
     gpu = port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
     scan = "topc_scan_wide" if kw.get("objective") == "damped" else "search_scan_wide"
-    assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), scan: 1}
+    k4 = int(kw.get("search") == "coarse")
+    assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), scan: 1,
+                                "staged_refine": k4}
     cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu", **kw)
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
 
@@ -735,10 +741,12 @@ def _eager(monkeypatch):
     monkeypatch.setattr(stream, "_captured", lambda *a: False)
 
 
-@pytest.mark.parametrize("kw", [{}, {"objective": "damped"}, {"search": "exact"}])
+@pytest.mark.parametrize("kw", [{}, {"objective": "damped"}, {"search": "exact"},
+                                {"tile_size": 512}, {"tile_size": 512, "objective": "damped"}])
 def test_captured_encode_replays_the_eager_records(dev, monkeypatch, kw):
     """Two lengths of one bucket through one capture, each with the eager
-    run's records and launch counts; a packed stack alike."""
+    run's records and launch counts; a packed stack alike. Tile 512 takes
+    the staged refine (K4)."""
     from fwav_tpu_torch.models.program import PROGRAMS
 
     sig = bench.make_signal(2.0)
@@ -821,3 +829,153 @@ def test_threads_replaying_one_key_keep_their_records(dev, monkeypatch):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert sorted(done) == list(range(8)) and not bad
+
+
+# --- K4, the staged window refine (csrc/staged_refine.cu) ----------------------
+
+
+def _k4(dev, seed, B, M, D, N, C, stride, n_valids, ties=False):
+    """Seeded K4 inputs for a stack of B files: a smooth bank per file (a
+    random walk's taps 16 apart), zero from its n_valid on; ranges; lobes
+    over every subsampled row and one past, lobe 0 and -1 planted. With
+    `ties`, every odd bank row repeats the row before it and a range's last
+    lobe repeats its first: exact ties, where the first must win."""
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.standard_normal((B, D + 16 * N)), axis=1).astype(np.float32) * 0.05
+    bank = np.stack([x[:, j * 16 : j * 16 + D] for j in range(N)], axis=2)
+    if ties:
+        bank[:, 1::2] = bank[:, 0 : D - 1 : 2]
+    for b, nv in enumerate(n_valids):
+        bank[b, nv:] = 0.0
+    ranges = (rng.standard_normal((B, M, N)) * 0.3).astype(np.float32)
+    lobes = rng.integers(-1, D // stride + 1, (B, M, C)).astype(np.int32)
+    lobes[:, ::7, 0] = 0
+    lobes[:, 2::13] = -1
+    if ties and C > 1:
+        lobes[:, 3::5, -1] = lobes[:, 3::5, 0]
+    return (torch.from_numpy(ranges).to(dev), torch.from_numpy(bank).to(dev),
+            torch.tensor(n_valids, dtype=torch.int32, device=dev),
+            torch.from_numpy(lobes).to(dev))
+
+
+def _bits_equal(got, want):
+    """idx equal and the scores' float32 bits equal."""
+    return torch.equal(got[0], want[0]) and torch.equal(got[1].view(torch.int32),
+                                                        want[1].view(torch.int32))
+
+
+#: (stride, lobe columns, range size, per_lobe): every branch of K4.
+K4_CASES = [(128, 1, 4, False),   # the (16, 4) descent
+            (512, 4, 4, True),    # the global pass: each column's descent, merged
+            (32, 1, 4, False),    # the (8,) stage
+            (128, 4, 16, False),  # dense, 4 lobes
+            (16, 1, 4, False),    # dense, one lobe at stride < 32
+            (16, 3, 8, True),     # per column dense, merged
+            (128, 1, 32, False),  # wide ranges: the descent
+            (64, 4, 64, False),   # wide ranges: dense
+            (128, 2, 7, False)]   # a range size that is no multiple of 4
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("stride,C,N,per_lobe", K4_CASES)
+@pytest.mark.parametrize("ties", [False, True])
+def test_staged_refine_kernel_equals_plain(dev, objective, stride, C, N, per_lobe, ties):
+    """K4 against its plain version on the card, bit for bit: every branch,
+    objective, range sizes 4 to 64, windows cut at both ends, n_valid under
+    W, 1 and 0, planted exact ties."""
+    D = 12 * stride + 2048
+    W = stride + stride // 4
+    nvs = [11 * stride + 301, W - 3, 1, 0]
+    args = _k4(dev, stride * 31 + C * 7 + N, len(nvs), 777, D, N, C, stride, nvs, ties)
+    before = kernels.LAUNCHES["staged_refine"]
+    got = kernels.staged_refine(*args, stride, objective, 2.0, per_lobe)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["staged_refine"] == before + 1
+    want = kernels.staged_refine_ref(*args, stride, objective, 2.0, per_lobe)
+    assert _bits_equal(got, want)
+    assert torch.isfinite(got[1][0]).sum() > 600 and not torch.isfinite(got[1][3]).any()
+
+
+@pytest.mark.parametrize("stride,C,N,per_lobe", [(128, 1, 4, False), (128, 4, 4, False),
+                                                 (512, 4, 4, True), (128, 1, 32, False)])
+def test_staged_refine_stack_of_16_equals_single_launches(dev, stride, C, N, per_lobe):
+    """A stack of 16 files with their own n_valid in one launch: each file
+    bit for bit its single launch."""
+    nvs = [11 * stride + 301 - 97 * b for b in range(16)]
+    ranges, bank, nv, lobes = _k4(dev, 90 + C, 16, 500, 12 * stride + 1024, N, C, stride, nvs)
+    for objective in ("balanced", "damped"):
+        geo = (stride, objective, 2.0, per_lobe)
+        got = kernels.staged_refine(ranges, bank, nv, lobes, *geo)
+        for b in range(16):
+            one = kernels.staged_refine(ranges[b], bank[b], nv[b : b + 1], lobes[b], *geo)
+            assert _bits_equal((got[0][b], got[1][b]), one), b
+        assert _bits_equal(got, kernels.staged_refine_ref(ranges, bank, nv, lobes, *geo))
+
+
+def test_staged_refine_reads_n_valid_from_the_device_under_capture(dev):
+    """A K4 launch captured in a CUDA graph follows n_valid's value at each
+    replay (nothing of it is baked into the launch), as the captured
+    staged programs need; K3's transposed lobes are read through their
+    strides."""
+    stride, nvs = 128, [11 * 128 + 301, 9 * 128 + 7]
+    ranges, bank, nv, lobes = _k4(dev, 7, 2, 900, 12 * 128 + 1024, 4, 4, stride, nvs)
+    lobes_t = lobes.transpose(1, 2).contiguous().transpose(1, 2)  # K3's layout
+    assert not lobes_t.is_contiguous()
+    kernels.staged_refine(ranges, bank, nv, lobes_t, stride, "damped", 2.0)  # loads K4
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernels.staged_refine(ranges, bank, nv, lobes_t, stride, "damped", 2.0)
+    for shift in (0, 300, 1100):
+        cur = [nvs[0] - shift, nvs[1]]
+        nv.copy_(torch.tensor(cur, dtype=torch.int32))
+        graph.replay()
+        want = kernels.staged_refine_ref(ranges, bank, cur, lobes, stride, "damped", 2.0)
+        assert _bits_equal(out, want), shift
+
+
+def test_staged_refine_never_runs_the_plain_version_on_the_card(dev, monkeypatch):
+    """No fallback: on a CUDA tensor the wrapper launches K4 or raises."""
+    args = _k4(dev, 3, 1, 300, 4096, 4, 1, 128, [3000])
+    want = kernels.staged_refine_ref(*args, 128, "balanced", 2.0)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(kernels, "staged_refine_ref", refuse)
+    assert _bits_equal(kernels.staged_refine(*args, 128, "balanced", 2.0), want)
+    ranges, bank, nv, lobes = args
+    with pytest.raises(TypeError, match="n_valid must be an int32 tensor"):
+        kernels.staged_refine(ranges, bank, [3000], lobes, 128, "balanced", 2.0)
+    with pytest.raises(TypeError, match="lobes is torch.int64"):
+        kernels.staged_refine(ranges, bank, nv, lobes.long(), 128, "balanced", 2.0)
+    with pytest.raises(TypeError, match="n_valid has dtype"):
+        kernels.staged_refine(ranges, bank, nv.long(), lobes, 128, "balanced", 2.0)
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.staged_refine(ranges[..., :3].contiguous(), bank[..., :3].contiguous(), nv,
+                              lobes, 128, "balanced", 2.0)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        kernels.staged_refine(ranges, bank[..., :3].contiguous(), nv, lobes, 128, "balanced",
+                              2.0)
+
+
+def test_staged_encodes_launch_k4_once(dev):
+    """A staged single-shot encode (tile 512) and the damped stream's
+    global pass each launch K4 once, and the pass no longer runs the plain
+    refine on the card."""
+    sig = bench.make_signal(3.0)
+    for kw in ({"tile_size": 512}, {"tile_size": 512, "objective": "damped"}):
+        kernels.reset_launch_counts()
+        port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
+        assert kernels.LAUNCHES["staged_refine"] == 1
+    calls = []
+    real = kernels.refine_from_lobes  # what the plain version calls
+    kernels.refine_from_lobes = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        kernels.reset_launch_counts()
+        port.compress_audio_streaming(bench.make_signal(12.0), 44100, 2, device="cuda",
+                                      shard_samples=1 << 17, halo=1 << 15,
+                                      objective="damped")
+    finally:
+        kernels.refine_from_lobes = real
+    assert kernels.LAUNCHES["staged_refine"] == 1 and not calls

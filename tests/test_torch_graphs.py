@@ -6,13 +6,14 @@ A CUDA graph is captured and replayed only on the card
 eager runs there); what it needs of the program is checked here:
 - the cache key is the JAX package's _core_key, use_pallas left out, with
   the device and the files per stack after it;
-- the program reads its counts from the device `meta` and K2's n_valid
-  from a device tensor, and reads no tensor on the host (a read would be a
+- the program reads its counts from the device `meta` and K2's and K4's
+  n_valid from a device tensor, and reads no tensor on the host (a read would be a
   sync inside a capture and a value baked into the graph): every
   Tensor-to-host method raises while the program runs here;
 - its codes equal those of the host-int forms it replaced (the shard's
-  range offset sliced on the host, K2's n_valid as ints), for two lengths
-  of one bucket, one key, as a single file, a packed stack and a shard;
+  range offset sliced on the host, K2's and K4's n_valid as ints), for two
+  lengths of one bucket, one key, as a single file, a packed stack and a
+  shard, under the plans exact, coarse-window and coarse-staged;
 - the cache's bound: least recently used programs are evicted, against a
   stub program.
 Bar: codes equal exactly (the same float32 arithmetic on the same device).
@@ -108,14 +109,19 @@ def test_no_host_reads_refuses():
 
 @contextlib.contextmanager
 def k2_host_ints(monkeypatch):
-    """K2 as it was called before: n_valid as host ints."""
-    real = kernels.refine_window
+    """K2 and K4 as they were called before: n_valid as host ints (K4's
+    plain version takes them; the staged refine took one int per file)."""
+    real, real4 = kernels.refine_window, kernels.staged_refine
 
     def host(means_ext, lobes, ranges, n_valid, *a, **k):
         return real(means_ext, lobes, ranges, [int(v) for v in n_valid], *a, **k)
 
+    def host4(ranges, bank, n_valid, *a, **k):
+        return real4(ranges, bank, [int(v) for v in n_valid], *a, **k)
+
     with monkeypatch.context() as m:
         m.setattr(port_encode, "refine_window", host)
+        m.setattr(port_encode, "staged_refine", host4)
         yield
 
 
@@ -131,12 +137,16 @@ def _front_masked_host(raw, mask_bytes, meta, lb, cfg):
             inv[None])
 
 
-#: Two lengths of one bucket at 44.1 kHz and the default tile: the same
+#: Two lengths of one bucket at 44.1 kHz: at the default tile the same
 #: (nb, lb, db) = (32768, 8192, 32768), so the same key; 32,768 bank rows
-#: take the coarse search with the window refine.
+#: take the coarse search with the window refine; at tile 512 (coarse
+#: stride 64) the staged refine, K4.
 _LENGTHS = (30000, 32000)
 _KW = {"balanced": {}, "damped": {"objective": "damped"},
-       "exact": {"search": "exact"}}
+       "exact": {"search": "exact"}, "staged": {"tile_size": 512},
+       "staged_damped": {"tile_size": 512, "objective": "damped"}}
+_PLAN = {"exact": ("exact", 128, None), "staged": ("coarse", 64, "staged"),
+         "staged_damped": ("coarse", 64, "staged")}
 
 
 def _two_files(kind):
@@ -149,7 +159,7 @@ def _two_files(kind):
                                   "cpu") for r in files}
     assert len(keys) == 1
     plan = port_encode._plan_search(cfg, lb // cfg.range_size, db)
-    assert plan == (("exact", 128, None) if kind == "exact" else ("coarse", 128, "window"))
+    assert plan == _PLAN.get(kind, ("coarse", 128, "window"))
     metas = [port_encode._stack_counts([n], [f[1]], [f[2]]) for n, f in zip(_LENGTHS, files)]
     return cfg, lb, db, [f[0] for f in files], metas
 
@@ -165,7 +175,7 @@ def test_raw_program_reads_its_counts_on_the_device(monkeypatch, kind):
         raw_t, meta_t = torch.from_numpy(raw[None]), torch.from_numpy(meta)
         with no_host_reads():
             got = port_encode._program_raw(raw_t, meta_t, lb, db, cfg)
-        if kind != "exact":  # K2 runs only after a coarse scan
+        if kind != "exact":  # K2 or K4 runs only after a coarse scan
             with k2_host_ints(monkeypatch):
                 want = port_encode._program_raw(raw_t, meta_t, lb, db, cfg)
             assert torch.equal(got, want)
@@ -179,17 +189,27 @@ def test_raw_program_reads_its_counts_on_the_device(monkeypatch, kind):
     assert not torch.equal(singles[0], singles[1])
 
 
-@pytest.mark.parametrize("kind", ["balanced", "damped"])
+#: The shards' configurations: the window refine, and the staged refine
+#: at tile 512 (4 taps, coarse stride 64) and tile 2048 (8 taps, domain_step 2).
+_SHARD_KW = {"balanced": ({}, ("coarse", 128, "window")),
+             "damped": ({"objective": "damped"}, ("coarse", 128, "window")),
+             "staged_damped": ({"tile_size": 512, "objective": "damped"},
+                               ("coarse", 64, "staged")),
+             "staged_tile2048": ({"tile_size": 2048}, ("coarse", 128, "staged"))}
+
+
+@pytest.mark.parametrize("kind", list(_SHARD_KW))
 @pytest.mark.parametrize("offset", [12000, 40000])
 def test_shard_program_reads_its_counts_on_the_device(monkeypatch, kind, offset):
     """A shard window: the range offset applied on the device with the
     clamp of lax.dynamic_slice (40,000 is past nb - lb and clamps), no
     host read; codes equal the host-int form's for two window lengths."""
-    cfg = EncoderConfig(**_KW[kind])
+    kw, plan = _SHARD_KW[kind]
+    cfg = EncoderConfig(**kw)
     sig = bench.make_signal(2.0)
     nb, lb, db = 65536, 32768, 65536
     n = cfg.range_size
-    assert port_encode._plan_search(cfg, lb // n, db) == ("coarse", 128, "window")
+    assert port_encode._plan_search(cfg, lb // n, db) == plan
     codes = []
     for lenw in (60000, 58000):
         raw_p = np.zeros(nb, np.int16)
@@ -208,7 +228,7 @@ def test_shard_program_reads_its_counts_on_the_device(monkeypatch, kind, offset)
         with k2_host_ints(monkeypatch):
             want = port_encode._mesh_program(
                 Mesh([["cpu"]]), lambda d: _front_masked_host(raw_t, mask_t, meta, lb, cfg),
-                lb, db, cfg, [int(meta[3])])[0]
+                lb, db, cfg)[0]
         assert torch.equal(got, want)
         assert (got[0, :, 0] != 0xFF).any()
         codes.append(got)
@@ -265,14 +285,17 @@ class _Cells:
 
 
 def test_captured_plans():
-    """exact and coarse-window on one card; the staged refine, topk, a CPU
+    """exact, coarse-window and coarse-staged on one card; topk, a CPU
     device and a mesh of several cells stay eager."""
     one = _Cells(1, "cuda")
     default = EncoderConfig()
     assert port_encode._captured(default, 442368, 458752, one)  # 10 s: coarse, window
     assert port_encode._captured(EncoderConfig(objective="damped"), 442368, 458752, one)
     assert port_encode._captured(default, 32768, 24576, one)  # exact
-    assert not port_encode._captured(EncoderConfig(tile_size=512), 442368, 458752, one)
+    assert port_encode._captured(EncoderConfig(tile_size=512), 442368, 458752, one)  # staged
+    assert port_encode._captured(EncoderConfig(tile_size=512, objective="damped"), 442368,
+                                 458752, one)
+    assert port_encode._captured(default, 3145728, 3145728, one)  # 60 s: staged
     assert not port_encode._captured(EncoderConfig(search="topk"), 442368, 458752, one)
     assert not port_encode._captured(default, 442368, 458752, Mesh([["cpu"]]))
     assert not port_encode._captured(default, 442368, 458752, _Cells(2, "cuda"))
@@ -288,6 +311,7 @@ class _Stub:
 
     def __init__(self, device, host_inputs, build):
         self.build, self.fills, self.released = build, [], False
+        self.pool = 0
         _Stub.made.append(self)
 
     def fill(self, host_inputs):
@@ -334,6 +358,37 @@ def test_cache_evicts_the_least_recently_used():
     assert cache.stats()["entries"] == 0 and c.released
 
 
+def test_cache_evicts_past_its_pool_bytes():
+    """Past `max_bytes` of the programs' pools the least recently used
+    programs go, however few they are; the program of the running call
+    stays, even alone over the bound."""
+    _Stub.made.clear()
+    cache = program.ProgramCache(capacity=8, make=_Stub)
+    cache.max_bytes = 100
+
+    def run(key, pool=None):
+        prog = cache.load(key, "cpu", (np.array([1]),), lambda a: a)
+        prog.launch()
+        if pool is not None:
+            prog.pool = pool  # what a capture reads
+        return prog
+
+    for key, pool in (("a", 40), ("b", 50)):
+        run(key)
+        run(key, pool)  # captured: 90 bytes in all
+    a, b = _Stub.made
+    run("c")
+    run("c", 30)  # loaded at 90, captured: 120 from the next call on
+    assert cache.keys() == ["a", "b", "c"] and cache.stats()["evictions"] == 0
+    run("b")  # 120 > 100: a goes
+    assert a.released and cache.keys() == ["c", "b"]
+    run("d")
+    run("d", 500)  # alone over the bound
+    run("d")
+    assert cache.keys() == ["d"] and cache.stats()["evictions"] == 3
+    assert cache.stats()["max_bytes"] == 100
+
+
 def test_cache_forgets_the_oldest_keys_seen_once(monkeypatch):
     """Keys seen once are remembered up to SEEN_MAX; a forgotten key's
     next call is a first call again."""
@@ -353,6 +408,7 @@ def test_cache_forgets_the_oldest_keys_seen_once(monkeypatch):
 
 def test_cache_capacity_is_named():
     assert program.PROGRAMS.capacity == program.GRAPH_CACHE_MAX == 32
+    assert program.PROGRAMS.max_bytes == program.GRAPH_CACHE_BYTES == 16 << 30
 
 
 def test_cpu_encode_captures_nothing():
