@@ -17,9 +17,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    K3's four, and its per-position table to exact equality), with
    CUDA-event times of both, the kernel's bound (bytes, tensor work and
    CUDA-core operations of these inputs at the card's published peaks)
-   and its share of it; K4 (the staged refine) bit for bit at the shapes of
-   the 100 s global pass, the staged single-shot encodes (60 s; tiles 512,
-   2048 and 8192) and a stack of 16 files at tile 512;
+   and its share of it; K4 (the staged refine) and its per-row table bit
+   for bit at the shapes of the 100 s global pass, the staged single-shot
+   encodes (60 s; tiles 512, 2048 and 8192) and a stack of 16 files at
+   tile 512, K4 timed with the table made in the call and on one made
+   before, the table alone;
 4. slice: 10 s of 44.1 kHz 16-bit mono through the public API on the card
    (WAV write/read, compress_audio_arrays, prune_bank, save/load,
    decompress_audio): K1 and K2 launched, the sentinel count and the
@@ -58,8 +60,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    wall and busy time against 16 single calls, peak memory;
 9. staged: the single-shot geometries whose coarse refine is the staged
    one (a 60 s file, over the window refine's 9 MB means cap; 10 s at tile
-   512 and at tile 2048), balanced and damped: K1 or K3 and K4 once each,
-   K2 not launched, the JAX package's sentinels and SNR, peak memory;
+   512 and at tile 2048), balanced and damped: K1 or K3 and K4 once each
+   (K4's table once where its windows are dense: damped), K2 not launched,
+   the JAX package's sentinels and SNR, peak memory;
 9b. wide_tiles: the 10 s file at tile 8192 (range size 32: coarse, the
    staged refine after K1, or damped K3) and at tile 16384 (range size 64:
    the exact branch), where K1 and K3 run their wide kernels
@@ -298,6 +301,19 @@ REFINE_WINDOW = 160
 #: each orientation's clip (6 each), the fold (2) and the running first
 #: max (3). A division counts as one operation.
 K4_OPS_PER_ROW = {"balanced": 16, "affine": 11, "damped": 25}
+#: The same work as this K4 splits it (csrc/staged_refine.cu). A row's
+#: terms, beside 3 per tap (the mean's add, the centring, the energy's
+#: multiply-add): + eps (1), the weight (balanced 6, affine and damped 1),
+#: damped the threshold (2); once per bank row where K4 makes its table,
+#: else once per scored row. A scored row from the table is centred (1 a
+#: tap, counted beside the numerators). The scoring, per scored
+#: row, beside 2 per tap on the CUDA cores (the two numerators'
+#: multiply-adds: no two ranges share a window, so no tensor-core reuse)
+#: and, from the table, the centring:
+#: the two gains (4), damped each orientation's clip (6 each), the fold
+#: (2) and the running first max (3).
+K4_TABLE_OPS_PER_ROW = {"balanced": 7, "affine": 2, "damped": 4}
+K4_SCORE_OPS_PER_ROW = {"balanced": 9, "affine": 9, "damped": 21}
 LIBRARY_NOTE = ("none: no single PyTorch call computes a running argmax or top-C of "
                 "the clip-aware, weighted, orientation-folded gain, a refine around "
                 "lobes, or its per-position table")
@@ -813,8 +829,18 @@ def main() -> int:
          "replaces": "fwav_tpu/ops/search.py:470",
          **summary("staged_refine", "k4_", "k4_global_pass", "k4_stack16_tile512_damped"),
          "by_shape": {k: {f: checks[k][f] for f in (
-             "shape", "N", "stride", "objective", "per_lobe", "scored_rows", "ms", "plain_ms",
-             "bound_ms", "bound_by", "share_of_bound")} for k in checks if k.startswith("k4_")}},
+             "shape", "N", "stride", "objective", "per_lobe", "scored_rows", "uses_table",
+             "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound", "design_bound_ms",
+             "design_bound_term", "design_share")} | {f: checks[k][f] for f in (
+                 "score_ms", "stats_ms") if f in checks[k]}
+             for k in checks if k.startswith("k4_")}},
+        {"name": "staged_stats (K4's per-row table)", "route": "cuda",
+         "source": "fwav_tpu_torch/csrc/staged_refine.cu",
+         "replaces": "fwav_tpu/ops/search.py:470",
+         **summary("staged_stats", "ks_", "ks_60s_damped", "ks_stack16_tile512_damped"),
+         "by_shape": {k: {f: checks[k][f] for f in (
+             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")}
+             for k in checks if k.startswith("ks_")}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -1047,6 +1073,48 @@ def k4_bound(ranges, bank, lobes, n_valid, stride, objective, per_lobe) -> dict:
     })}
 
 
+def k4_design_bound(ranges, bank, lobes, n_valid, stride, objective, per_lobe,
+                    table: bool) -> dict:
+    """K4's least time as this design splits the work: the rows' terms
+    once per bank row where it makes its table (else once per scored row)
+    and the scoring per scored row (K4_TABLE_OPS_PER_ROW,
+    K4_SCORE_OPS_PER_ROW), or the bank, ranges, lobes and counts read once,
+    the table (4 floats a row) written and read once and (idx, score)
+    written once."""
+    rows = k4_rows(lobes, n_valid, stride, per_lobe)
+    N = int(ranges.shape[-1])
+    bank_rows = bank.numel() // N
+    ops = (bank_rows if table else rows) * (3 * N + K4_TABLE_OPS_PER_ROW[objective]) \
+        + rows * ((3 if table else 2) * N + K4_SCORE_OPS_PER_ROW[objective])
+    nbytes = 4 * (bank.numel() + 2 * bank_rows * 4 * table + ranges.numel()
+                  + lobes.numel() + n_valid.numel()) + 8 * (ranges.numel() // N)
+    terms = {"cuda_core": ops / CUDA_CORE_OPS_PER_S * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return {"design_bound_ms": terms[term], "design_bound_term": term,
+            "design_bound_terms_ms": terms}
+
+
+def k4_stats_check(kernels, name, bank, objective, s_clip):
+    """K4's per-row table against its plain version: equal bit for bit;
+    timed as replayed CUDA graphs, with its bound: every row's operations
+    (K4_TABLE_OPS_PER_ROW beside 3 a tap) or the bank read and the table
+    written once."""
+    import torch
+
+    table = (bank, objective, s_clip)
+    got, want = kernels.staged_stats(*table), kernels.staged_stats_ref(*table)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"{name}: {int((got != want).sum())} table entries differ")
+    N = int(bank.shape[-1])
+    rows = bank.numel() // N
+    check = {"rows": rows, "max_abs_err": 0.0, "shape": list(got.shape), **bound({
+                 "cuda_core": rows * (3 * N + K4_TABLE_OPS_PER_ROW[objective])
+                 / CUDA_CORE_OPS_PER_S * 1e3,
+                 "bytes": 4 * (bank.numel() + got.numel()) / HBM_BYTES_PER_S * 1e3})}
+    return timed(check, lambda: kernels.staged_stats(*table),
+                 lambda: kernels.staged_stats_ref(*table), timer=graph_ms)
+
+
 def k4_inputs(kernels, enc, dev, sig, cfg, stride, lb, db, n_domains, C, files=1):
     """K4's inputs as a staged path builds them from `sig`, at its buckets:
     the signal normalized (in a stack each file rolled by its own offset,
@@ -1085,10 +1153,49 @@ def k4_inputs(kernels, enc, dev, sig, cfg, stride, lb, db, n_domains, C, files=1
     return out if files > 1 else tuple(t[0] for t in out[:2]) + (nv, lobes[0])
 
 
+def k4_score(kernels, ranges, bank, n_valid, lobes, stride, objective, s_clip, per_lobe,
+             table):
+    """K4's scoring launch alone, on `table` = kernels.staged_stats(bank,
+    objective, s_clip) made before, through the kernel's C interface (the
+    wrapper always makes its own): for timing the scoring apart from its
+    table. A stack's arguments as kernels.staged_refine takes them; returns
+    (idx, score)."""
+    import ctypes
+
+    import torch
+
+    from fwav_tpu_torch.ops import _build
+
+    if ranges.dim() == 2:
+        idx, score = k4_score(kernels, ranges[None], bank[None], n_valid.reshape(1),
+                              lobes[None], stride, objective, s_clip, per_lobe, table[None])
+        return idx[0], score[0]
+    B, M, N = ranges.shape
+    idx = torch.empty((B, M), dtype=torch.int32, device=ranges.device)
+    score = torch.empty((B, M), dtype=torch.float32, device=ranges.device)
+    lib = _build.load()
+    code = lib.fwav_staged_refine(
+        ctypes.c_void_p(ranges.data_ptr()), B, M, N,
+        ctypes.c_void_p(bank.data_ptr()), bank.shape[1], ctypes.c_void_p(table.data_ptr()),
+        ctypes.c_void_p(lobes.data_ptr()), lobes.shape[2], lobes.stride(0), lobes.stride(1),
+        lobes.stride(2), ctypes.c_void_p(n_valid.data_ptr()), stride,
+        kernels._OBJECTIVES[objective], int(per_lobe), abs(float(s_clip)),
+        ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(score.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(lib, code, "staged_refine")
+    return idx, score
+
+
 def k4_check(kernels, name, args, stride, cfg, per_lobe=False, **plain_timing):
     """K4 against its plain version on the card: bit for bit (0 differing
     rows, 0 score error), timed as replayed CUDA graphs (graph_ms: the card
-    alone), with its bound on these inputs."""
+    alone) as the main paths call it (`ms`: with its table made in the
+    call where staged_uses_table says it pays), and there the scoring on a
+    table made before (`score_ms`, k4_score, bit for bit the whole call)
+    and the table alone (`stats_ms`), with its bound on these inputs
+    (k4_bound, the yardstick of the first design) and this design's own
+    (k4_design_bound). Returns (K4's check, its table's, k4_stats_check at
+    this bank, or None where no main path makes a table)."""
     import torch
 
     from fwav_tpu_torch.ops import near_tie
@@ -1106,8 +1213,25 @@ def k4_check(kernels, name, args, stride, cfg, per_lobe=False, **plain_timing):
              "N": int(ranges.shape[-1]), "stride": stride, "objective": cfg.objective,
              "per_lobe": per_lobe, **k4_bound(ranges, bank, lobes, nv, stride, cfg.objective,
                                                per_lobe)}
-    return timed(check, lambda: kernels.staged_refine(*k4),
-                 lambda: kernels.staged_refine_ref(*k4), timer=graph_ms, **plain_timing)
+    uses = kernels.staged_uses_table(int(ranges.shape[-1]), stride, int(lobes.shape[-1]),
+                                     per_lobe)
+    check.update(uses_table=uses, **k4_design_bound(ranges, bank, lobes, nv, stride,
+                                                    cfg.objective, per_lobe, uses))
+    if uses:
+        table = (bank, cfg.objective, cfg.s_clip)
+        stats = kernels.staged_stats(*table)
+        alone = k4_score(kernels, *k4, stats)
+        if not (torch.equal(alone[0], got[0])
+                and torch.equal(alone[1].view(torch.int32), got[1].view(torch.int32))):
+            raise AssertionError(f"{name}: the scoring on a table made before differs")
+        check.update(score_ms=graph_ms(lambda: k4_score(kernels, *k4, stats)),
+                     stats_ms=graph_ms(lambda: kernels.staged_stats(*table)))
+        del stats, alone
+    out = timed(check, lambda: kernels.staged_refine(*k4),
+                lambda: kernels.staged_refine_ref(*k4), timer=graph_ms, **plain_timing)
+    out["design_share"] = out["design_bound_ms"] / out["ms"]
+    return out, (k4_stats_check(kernels, f"{name} table", bank, cfg.objective, cfg.s_clip)
+                 if uses else None)
 
 
 #: K4 at the staged paths' shapes: (check, seconds of make_signal, config).
@@ -1121,20 +1245,17 @@ K4_CHECKS = [("k4_60s_balanced", 60.0, {}),
              ("k4_tile8192_damped", 10.0, {"tile_size": 8192, "objective": "damped"})]
 
 
-def staged_refine_checks(port, kernels, enc, dev, stream_sig, checks):
-    """K4 against its plain version on the card at the shapes of its main
-    paths: the 100 s stream's global pass (1,310,720 ranges x 4 lobe
-    columns, each its descent, over 5,242,880 rows), the staged single-shot
-    encodes (60 s: 786,432 x 1 lobe, the (16, 4) descent, and x 4 lobes,
-    dense 4 x 160 rows, over 3,145,728 rows; 10 s at tiles 512, 2048 and
-    8192, the last at 32 taps) and a stack of 16 ten-second files at tile
-    512 (damped), whose every file equals its single launch bit for bit."""
-    import torch
-
+def k4_shapes(port, kernels, enc, dev, stream_sig):
+    """K4's inputs at the shapes of its main paths, as (check, (ranges,
+    bank, n_valid, lobes), stride, config, per_lobe): the 100 s stream's
+    global pass (1,310,720 ranges x 4 lobe columns, each its descent, over
+    5,242,880 rows), the staged single-shot encodes of K4_CHECKS (60 s:
+    786,432 x 1 lobe, the (16, 4) descent, and x 4 lobes, dense 4 x 160
+    rows, over 3,145,728 rows; 10 s at tiles 512, 2048 and 8192, the last
+    at 32 taps) and a stack of 16 ten-second files at tile 512 (damped)."""
     from bench import make_signal
     from fwav_tpu_torch.models.stream import GLOBAL_NOM_ROWS
 
-    slow = {"plain_reps": 3, "plain_warmup": 1}
     # the global pass, as models/stream.py _global_pass sizes it
     cfg = port.EncoderConfig(objective="damped")
     n = cfg.range_size
@@ -1144,11 +1265,8 @@ def staged_refine_checks(port, kernels, enc, dev, stream_sig, checks):
     while -(-d_total // stride) > GLOBAL_NOM_ROWS:
         stride *= 2
     lb, db = enc.bucket(m, 256) * n, enc.bucket(-(-d_total // stride), 16) * stride
-    args = k4_inputs(kernels, enc, dev, stream_sig, cfg, stride, lb, db, d_total,
-                     cfg.global_topc)
-    checks["k4_global_pass"] = k4_check(kernels, "K4 global pass", args, stride, cfg,
-                                        per_lobe=True, plain_reps=2, plain_warmup=1)
-    del args
+    yield ("k4_global_pass", k4_inputs(kernels, enc, dev, stream_sig, cfg, stride, lb, db,
+                                       d_total, cfg.global_topc), stride, cfg, True)
     signals = {}
     for key, seconds, kw in K4_CHECKS:
         sig = signals.setdefault(seconds, make_signal(seconds))
@@ -1157,28 +1275,45 @@ def staged_refine_checks(port, kernels, enc, dev, stream_sig, checks):
         mode, stride, refine = enc._plan_search(cfg, lb // cfg.range_size, db)
         if (mode, refine) != ("coarse", "staged"):
             raise AssertionError(f"{key}: the plan is {(mode, stride, refine)}")
-        args = k4_inputs(kernels, enc, dev, sig, cfg, stride, lb, db, nd, enc._coarse_topc(cfg))
-        checks[key] = k4_check(kernels, key, args, stride, cfg, **slow)
-    # a stack of 16 at tile 512, damped: one launch, each file its single launch
+        yield (key, k4_inputs(kernels, enc, dev, sig, cfg, stride, lb, db, nd,
+                              enc._coarse_topc(cfg)), stride, cfg, False)
     cfg = port.EncoderConfig(tile_size=512, objective="damped")
     sig = signals[10.0]
     _, _, nd, lb, db = enc._prep_signal(sig, cfg)
     stride = enc._plan_search(cfg, lb // cfg.range_size, db)[1]
-    ranges, bank, nv, lobes = k4_inputs(kernels, enc, dev, sig, cfg, stride, lb, db, nd, 4,
-                                        files=PACK_FILES)
-    geo = (stride, cfg.objective, cfg.s_clip)
-    got = kernels.staged_refine(ranges, bank, nv, lobes, *geo)
-    for b in range(PACK_FILES):
-        one = kernels.staged_refine(ranges[b], bank[b], nv[b : b + 1], lobes[b], *geo)
-        if not (torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1])):
-            raise AssertionError(f"K4 stack of 16: file {b} differs from its single launch")
-    check = k4_check(kernels, "K4 stack of 16 tile 512 damped", (ranges, bank, nv, lobes),
-                     stride, cfg, **slow)
-    single_ms = graph_ms(lambda: kernels.staged_refine(ranges[0], bank[0], nv[:1], lobes[0],
-                                                       *geo))
-    checks["k4_stack16_tile512_damped"] = {
-        **check, "files": PACK_FILES, "single_launch_ms": single_ms,
-        "stack_over_singles": check["ms"] / (PACK_FILES * single_ms)}
+    yield ("k4_stack16_tile512_damped", k4_inputs(kernels, enc, dev, sig, cfg, stride, lb, db,
+                                                  nd, 4, files=PACK_FILES), stride, cfg, False)
+
+
+def staged_refine_checks(port, kernels, enc, dev, stream_sig, checks):
+    """K4 and its table against their plain versions on the card at the
+    shapes of k4_shapes; every file of the stack of 16 equals its single
+    launch bit for bit. Checks k4_* (K4) and ks_* (its table)."""
+    import torch
+
+    for key, args, stride, cfg, per_lobe in k4_shapes(port, kernels, enc, dev, stream_sig):
+        slow = {"plain_reps": 2 if per_lobe else 3, "plain_warmup": 1}
+        checks[key], table = k4_check(kernels, key, args, stride, cfg, per_lobe, **slow)
+        if table is not None:
+            checks["ks_" + key[3:]] = table
+        if not key.startswith("k4_stack16"):
+            continue
+        # one launch over the stack: each file its single launch
+        ranges, bank, nv, lobes = args
+        geo = (stride, cfg.objective, cfg.s_clip)
+        got = kernels.staged_refine(ranges, bank, nv, lobes, *geo)
+        for b in range(PACK_FILES):
+            one = kernels.staged_refine(ranges[b], bank[b], nv[b : b + 1], lobes[b], *geo)
+            if not (torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1])):
+                raise AssertionError(f"K4 stack of 16: file {b} differs from its single launch")
+        for prefix, fn in (
+                ("k4_", lambda: kernels.staged_refine(ranges[0], bank[0], nv[:1], lobes[0],
+                                                      *geo)),
+                ("ks_", lambda: kernels.staged_stats(bank[0], *geo[1:]))):
+            check = checks[prefix + key[3:]]
+            single_ms = graph_ms(fn)
+            check.update(files=PACK_FILES, single_launch_ms=single_ms,
+                         stack_over_singles=check["ms"] / (PACK_FILES * single_ms))
 
 
 def mesh_kernel_checks(kernels, enc, dev, sig, stream_sig, checks):
@@ -1353,9 +1488,10 @@ def stream_phase(port, kernels, smi, sig):
         peak = torch.cuda.max_memory_allocated() / 2**20
         if launches["topc_scan"] < 6 or min(launches["refine_window"],
                                             launches["window_stats"]) < 5 or (
-                launches["staged_refine"] != 1):
+                launches["staged_refine"] != 1 or launches["staged_stats"]):
+            # the pass's descents score without K4's table (staged_uses_table)
             raise AssertionError(f"the damped stream did not launch K3 x6, K2 x5 and K4 once "
-                                 f"(its pass): {launches}")
+                                 f"(its pass, no table): {launches}")
         sentinels = int((res[0]["idx"] < 0).sum())
         if res[2] != STREAM_RANGES or sentinels != STREAM_SENTINELS:
             raise AssertionError(f"damped stream: {sentinels} sentinels in {res[2]} ranges")
@@ -1393,7 +1529,7 @@ def stream_phase(port, kernels, smi, sig):
         res, launches, stats, times = stream_run(port, kernels, sig, 3)
         peak = torch.cuda.max_memory_allocated() / 2**20
         if min(launches[k] for k in ("search_scan", "refine_window", "window_stats")) < 5 or (
-                launches["staged_refine"]):
+                launches["staged_refine"] or launches["staged_stats"]):
             raise AssertionError(f"the balanced stream did not launch K1 x5 and K2 x5 (and no "
                                  f"K4): {launches}")
         rec, _, n_ranges, rs, tile, step, thr, olen = res
@@ -1765,7 +1901,9 @@ def packed_phase(port, kernels, enc, smi):
         if (plan[2] == "staged") != (phase == "packed_staged"):
             raise AssertionError(f"{phase}: the plan is {plan}")
         want = {**dict.fromkeys(launches, 0), scan: stacks, "refine_window": k2,
-                "window_stats": k2, "staged_refine": stacks if plan[2] == "staged" else 0}
+                "window_stats": k2, "staged_refine": stacks if plan[2] == "staged" else 0,
+                "staged_stats": stacks if plan[2] == "staged" and kernels.staged_uses_table(
+                    cfg.range_size, plan[1], enc._coarse_topc(cfg), False) else 0}
         if launches != want:
             raise AssertionError(f"{phase}: launches {launches}, expected one of each kernel "
                                  f"per stack: {want}")
@@ -1820,6 +1958,7 @@ def staged_phase(port, kernels, smi):
     import torch
 
     from bench import make_signal
+    from fwav_tpu_torch.models import encode as enc
 
     out = {}
     for name, case in STAGED.items():
@@ -1833,10 +1972,14 @@ def staged_phase(port, kernels, smi):
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**20
         scan = "topc_scan" if kw.get("objective") == "damped" else "search_scan"
+        cfg = port.EncoderConfig(**kw)
+        _, _, _, lb, db = enc._prep_signal(sig, cfg)
+        stride = enc._plan_search(cfg, lb // cfg.range_size, db)[1]
+        table = kernels.staged_uses_table(cfg.range_size, stride, enc._coarse_topc(cfg), False)
         if launches[scan] != 1 or launches["refine_window"] or launches["window_stats"] or (
-                launches["staged_refine"] != 1):
+                launches["staged_refine"] != 1 or launches["staged_stats"] != table):
             raise AssertionError(f"staged {name}: launches {launches}, expected {scan} and K4 "
-                                 "once each")
+                                 f"once each, and K4's table {int(table)} times")
         rec, bank, n_ranges, rs, *_, olen = res
         sentinels = int((rec["idx"] < 0).sum())
         if n_ranges != case["n_ranges"] or sentinels != case["sentinels"]:
@@ -1888,7 +2031,8 @@ def wide_phase(port, kernels, smi, sig):
         first_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         scan = "topc_scan_wide" if kw.get("objective") == "damped" else "search_scan_wide"
-        want = {**dict.fromkeys(launches, 0), scan: 1, "staged_refine": int(plan[2] == "staged")}
+        k4 = int(plan[2] == "staged")
+        want = {**dict.fromkeys(launches, 0), scan: 1, "staged_refine": k4, "staged_stats": k4}
         if launches != want:
             raise AssertionError(f"wide {name}: launches {launches}, expected {want}")
         rec, bank, n_ranges, rs, *_, olen = res
@@ -1922,7 +2066,8 @@ def wide_phase(port, kernels, smi, sig):
             path, mine = d / f"t{tile}.fwav", d / f"api{tile}.fwav"
             launches, wall, _, _ = cli_call(kernels, ["compress", wav, path, "--tile", tile])
             need(f"cli --tile {tile}", launches,
-                 {"search_scan_wide": 1, "staged_refine": int(tile == 8192)})
+                 {"search_scan_wide": 1, "staged_refine": int(tile == 8192),
+                  "staged_stats": int(tile == 8192)})
             port.save_compressed(mine, prec, pbank, res[3], 44100, 2, *res[4:])
             if path.read_bytes() != mine.read_bytes():
                 raise AssertionError(f"cli --tile {tile}: the file differs from the API's")
@@ -1972,7 +2117,8 @@ KERNEL_KEYS = (("search_scan_wide_kernel", "search_scan_wide"),
                ("topc_scan_kernel", "topc_scan"),
                ("refine_window_kernel", "refine_window"),
                ("window_stats_kernel", "window_stats"),
-               ("staged_refine_kernel", "staged_refine"))
+               ("staged_refine_kernel", "staged_refine"),
+               ("staged_stats_kernel", "staged_stats"))
 
 
 def traced_kernels(fn):

@@ -111,8 +111,12 @@ def _bind(lib):
         p, p, i, i, p, i, ctypes.c_longlong, i, i, p, i, i, p, i, i, i, f, p, p, p,
     ]
     q = ctypes.c_longlong
+    lib.fwav_staged_stats.restype = i
+    lib.fwav_staged_stats.argtypes = [p, q, i, i, f, p, p]
     lib.fwav_staged_refine.restype = i
-    lib.fwav_staged_refine.argtypes = [p, i, i, i, p, q, p, i, q, q, q, p, i, i, i, f, p, p, p]
+    lib.fwav_staged_refine.argtypes = [
+        p, i, i, i, p, q, p, p, i, q, q, q, p, i, i, i, f, p, p, p,
+    ]
     ll = ctypes.POINTER(ctypes.c_longlong)
     lib.fwav_graph_node_kinds.restype = i
     lib.fwav_graph_node_kinds.argtypes = [p, p, ctypes.c_longlong, ll, ll]

@@ -26,14 +26,15 @@ and one kernel with no Pallas counterpart:
   encode core: the staged window refine around coarse lobes over the full
   bank, where the window-refine kernel's gates refuse a geometry, in the
   whole-file global pass (each lobe column alone, merged with a strict >)
-  and in coarse_refine_search. CUDA source: csrc/staged_refine.cu.
+  and in coarse_refine_search. Its per-row table comes from
+  `staged_stats`, a kernel of its own. CUDA source: csrc/staged_refine.cu.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor takes
 the plain PyTorch version (`search_scan_ref`, `topc_scan_ref`,
 `refine_window_ref`, `window_stats_ref`, `staged_refine_ref`, which runs
-`refine_from_lobes`, defined here), a CUDA tensor launches the kernel or
-raises. The plain versions are the spec, and on the same inputs
-each kernel agrees with its plain version bit for bit: K2 computes in its
+`refine_from_lobes`, defined here, `staged_stats_ref`), a CUDA tensor
+launches the kernel or raises. The plain versions are the spec, and on the
+same inputs each kernel agrees with its plain version bit for bit: K2 computes in its
 order of operations; K1 and K3 screen every pair on the tensor cores
 within a proven margin and confirm the pairs that can win in its float32
 arithmetic (csrc/scan_tile.cuh). `LAUNCHES` counts kernel launches per
@@ -69,7 +70,8 @@ _EPS = 1e-12
 #: the plain versions, are not counted). The wide K1 and K3 (range sizes
 #: over 16) count under "search_scan_wide" and "topc_scan_wide".
 LAUNCHES = {"search_scan": 0, "topc_scan": 0, "refine_window": 0, "window_stats": 0,
-            "search_scan_wide": 0, "topc_scan_wide": 0, "staged_refine": 0}
+            "search_scan_wide": 0, "topc_scan_wide": 0, "staged_refine": 0,
+            "staged_stats": 0}
 
 _OBJECTIVES = {"balanced": 0, "affine": 1, "damped": 2}
 #: Range sizes of K2 and its table (csrc/refine_window.cu). Wider ranges
@@ -871,6 +873,77 @@ def staged_refine_ref(ranges, bank, n_valid, lobes, stride: int, objective: str 
     return torch.cat(idx), torch.cat(score)
 
 
+def staged_uses_table(N: int, stride: int, C: int, per_lobe: bool) -> bool:
+    """Whether K4 scores through its per-row table (staged_stats): dense
+    windows, and every range size over 16. A descent at up to 16 taps (one
+    lobe column at stride >= 32) scores 5 to 52 rows a bank row, each a
+    scattered read of a sector that holds the row anyway, so there the
+    kernel computes a row's terms as it scores it and no table is made."""
+    descent = stride >= 32 and (per_lobe or C == 1)
+    return N > 16 or not descent
+
+
+def staged_stats_ref(bank, objective: str = "balanced", s_clip: float = 16.0):
+    """Plain PyTorch version of `staged_stats`: what _window_gains computes
+    of one bank row alone, in its order of operations. bank (D, N); returns
+    (D, 4) float32 rows [mean, w, th, 0]: the row's mean, the balanced
+    weight (denom - eps - N mean^2) / denom^2 or the affine and damped
+    1 / denom, where denom is the centred energy + eps, and the damped clip
+    threshold |s_clip| (denom - eps), 0 for the other objectives. A stack
+    bank (B, D, N) is a loop over its files."""
+    if objective not in _OBJECTIVES:
+        raise ValueError(f"unknown objective {objective!r}")
+    if bank.dim() == 3:
+        return torch.stack([staged_stats_ref(b, objective, s_clip) for b in bank])
+    D, N = bank.shape
+    d_mean = row_mean(bank)
+    d_c = bank - d_mean[:, None]
+    denom = row_sum(d_c * d_c) + _EPS
+    if objective == "balanced":
+        w = (denom - _EPS - N * d_mean * d_mean) / (denom * denom)
+    else:
+        w = torch.reciprocal(denom)
+    thresh = domain_thresh(denom - _EPS, objective, s_clip)
+    out = torch.zeros((D, 4), dtype=torch.float32, device=bank.device)
+    out[:, 0] = d_mean
+    out[:, 1] = w
+    if thresh is not None:
+        out[:, 2] = thresh
+    return out
+
+
+def staged_stats(bank, objective: str = "balanced", s_clip: float = 16.0):
+    """K4's per-row table (see staged_stats_ref), made once per bank by its
+    own kernel on a CUDA tensor, one thread a row. A stack bank (B, D, N)
+    is one launch and returns (B, D, 4)."""
+    dev = bank.device
+    if dev.type == "cpu":
+        return staged_stats_ref(bank, objective, s_clip)
+    if dev.type != "cuda":
+        raise ValueError(f"staged_stats: unsupported device {dev}")
+    if bank.dim() == 2:
+        return staged_stats(bank[None], objective, s_clip)[0]
+    _cuda_args("staged_stats", {"bank": bank}, [(torch.float32,)], dev)
+    B, D, N = bank.shape if bank.dim() == 3 else (0, 0, 0)
+    if N not in _SCAN_N or D == 0 or objective not in _OBJECTIVES or not 1 <= B <= 65535:
+        raise ValueError(f"staged_stats: no kernel for bank {tuple(bank.shape)}, "
+                         f"objective={objective!r}")
+
+    from . import _build
+
+    lib = _build.load()
+    out = torch.empty((B, D, 4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.fwav_staged_stats(
+            _ptr(bank), B * D, N, _OBJECTIVES[objective], np.float32(abs(float(s_clip))).item(),
+            _ptr(out), ctypes.c_void_p(stream),
+        )
+    _build.check(lib, code, "staged_stats")
+    LAUNCHES["staged_stats"] += 1
+    return out
+
+
 def staged_refine(ranges, bank, n_valid, lobes, stride: int, objective: str = "balanced",
                   s_clip: float = 16.0, per_lobe: bool = False):
     """K4: the staged window refine around coarse lobes (see
@@ -881,13 +954,16 @@ def staged_refine(ranges, bank, n_valid, lobes, stride: int, objective: str = "b
     transposed view included); n_valid an int32 tensor on the device of one
     element. With one lobe column and stride >= 32 the staged descent runs,
     else all C * W rows are scored; `per_lobe` refines each column alone
-    and keeps the earlier lobe on ties (the global pass). Returns (idx (M,)
-    int32, score (M,) float32).
+    and keeps the earlier lobe on ties (the global pass). Where
+    staged_uses_table says it pays, the bank's table is made first
+    (staged_stats, a launch of its own); elsewhere the kernel computes each
+    row's terms as it scores it. Returns (idx (M,) int32, score (M,)
+    float32).
 
-    A stack of files (a leading axis B on ranges, bank and lobes; n_valid
-    (B,)) is one launch, with the file as the slowest axis of the grid;
-    returns (B, M) each. n_valid is read from device memory, so nothing of
-    it is baked into a captured launch."""
+    A stack of files (a leading axis B on ranges, bank and lobes;
+    n_valid (B,)) is one launch, with the file as the slowest axis of the
+    grid; returns (B, M) each. n_valid is read from device memory, so
+    nothing of it is baked into a captured launch."""
     dev = ranges.device
     if dev.type == "cpu":
         return staged_refine_ref(ranges, bank, n_valid, lobes, stride, objective, s_clip,
@@ -918,6 +994,8 @@ def staged_refine(ranges, bank, n_valid, lobes, stride: int, objective: str = "b
             or objective not in _OBJECTIVES or not 1 <= B <= 65535):
         raise ValueError(f"staged_refine: no kernel for B={B}, M={M}, N={N}, D={D}, C={C}, "
                          f"stride={stride}, objective={objective!r}")
+    stats = staged_stats(bank, objective, s_clip) if staged_uses_table(
+        N, stride, C, per_lobe) else None
 
     from . import _build
 
@@ -927,10 +1005,11 @@ def staged_refine(ranges, bank, n_valid, lobes, stride: int, objective: str = "b
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fwav_staged_refine(
-            _ptr(ranges), B, M, N, _ptr(bank), D, _ptr(lobes), C, lobes.stride(0),
-            lobes.stride(1), lobes.stride(2), _ptr(n_valid), int(stride),
-            _OBJECTIVES[objective], int(per_lobe), np.float32(abs(float(s_clip))).item(),
-            _ptr(idx), _ptr(score), ctypes.c_void_p(stream),
+            _ptr(ranges), B, M, N, _ptr(bank), D, None if stats is None else _ptr(stats),
+            _ptr(lobes), C, lobes.stride(0), lobes.stride(1), lobes.stride(2),
+            _ptr(n_valid), int(stride), _OBJECTIVES[objective], int(per_lobe),
+            np.float32(abs(float(s_clip))).item(), _ptr(idx), _ptr(score),
+            ctypes.c_void_p(stream),
         )
     _build.check(lib, code, "staged_refine")
     LAUNCHES["staged_refine"] += 1

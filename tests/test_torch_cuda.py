@@ -32,8 +32,9 @@ pytestmark = pytest.mark.cuda
 
 #: The wide K1 and K3 (range sizes over 16), which these paths never launch.
 NO_WIDE = {"search_scan_wide": 0, "topc_scan_wide": 0}
-#: K4, the staged refine, which the window-refine paths never launch.
-NO_K4 = {"staged_refine": 0}
+#: K4, the staged refine, and its table, which the window-refine paths
+#: never launch.
+NO_K4 = {"staged_refine": 0, "staged_stats": 0}
 
 
 @pytest.fixture
@@ -340,7 +341,8 @@ def test_stream_on_the_card_matches_the_host(dev, objective):
     cpu = port.compress_audio_streaming(sig, 44100, 2, device="cpu", **kw)
     if objective == "damped":
         assert launches == {"search_scan": 0, "topc_scan": 6, "refine_window": 5,
-                            "window_stats": 5, **NO_WIDE, "staged_refine": 1}
+                            "window_stats": 5, **NO_WIDE, "staged_refine": 1,
+                            "staged_stats": 0}  # the pass's descent: no table
     else:
         assert launches == {"search_scan": 5, "topc_scan": 0, "refine_window": 5,
                             "window_stats": 5, **NO_WIDE, **NO_K4}
@@ -486,7 +488,8 @@ def test_packed_encode_on_the_card_equals_the_single_encodes(dev, kw, refine):
     sigs.append(sigs[0][: 2 * 44100 + 123].copy())
     cfg = port.EncoderConfig(**kw)
     _, _, _, lb, db = enc._prep_signal(sigs[0], cfg)
-    assert enc._plan_search(cfg, lb // cfg.range_size, db)[2] == refine
+    _, stride, plan = enc._plan_search(cfg, lb // cfg.range_size, db)
+    assert plan == refine
     kernels.reset_launch_counts()
     packed = port.compress_audio_packed(sigs, 44100, 2, device="cuda", **kw)
     launches = dict(kernels.LAUNCHES)
@@ -494,6 +497,8 @@ def test_packed_encode_on_the_card_equals_the_single_encodes(dev, kw, refine):
     k2 = 2 if refine == "window" else 0
     assert launches[scan] == 2 and launches["refine_window"] == k2
     assert launches["window_stats"] == k2 and launches["staged_refine"] == 2 - k2
+    table = kernels.staged_uses_table(cfg.range_size, stride, enc._coarse_topc(cfg), False)
+    assert launches["staged_stats"] == (2 - k2) * table
     for sig, got in zip(sigs, packed):
         one = port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
         np.testing.assert_array_equal(got[0].view(np.uint8), one[0].view(np.uint8))
@@ -687,7 +692,7 @@ def test_wide_tile_encode_on_the_card_matches_the_host(dev, kw):
     scan = "topc_scan_wide" if kw.get("objective") == "damped" else "search_scan_wide"
     k4 = int(kw.get("search") == "coarse")
     assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), scan: 1,
-                                "staged_refine": k4}
+                                "staged_refine": k4, "staged_stats": k4}
     cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu", **kw)
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
 
@@ -865,15 +870,18 @@ def _bits_equal(got, want):
 
 
 #: (stride, lobe columns, range size, per_lobe): every branch of K4.
-K4_CASES = [(128, 1, 4, False),   # the (16, 4) descent
-            (512, 4, 4, True),    # the global pass: each column's descent, merged
-            (32, 1, 4, False),    # the (8,) stage
-            (128, 4, 16, False),  # dense, 4 lobes
-            (16, 1, 4, False),    # dense, one lobe at stride < 32
-            (16, 3, 8, True),     # per column dense, merged
-            (128, 1, 32, False),  # wide ranges: the descent
-            (64, 4, 64, False),   # wide ranges: dense
-            (128, 2, 7, False)]   # a range size that is no multiple of 4
+K4_CASES = [(128, 1, 4, False),    # the (16, 4) descent
+            (512, 4, 4, True),     # the global pass: each column's descent, merged
+            (32, 1, 4, False),     # the (8,) stage
+            (128, 4, 16, False),   # dense, 4 lobes
+            (16, 1, 4, False),     # dense, one lobe at stride < 32
+            (16, 3, 8, True),      # per column dense, merged
+            (128, 1, 32, False),   # wide ranges: the descent
+            (64, 4, 64, False),    # wide ranges: dense
+            (128, 2, 7, False),    # a range size that is no multiple of 4
+            (64, 4, 17, False),    # wide, no multiple of 4
+            (512, 4, 128, True),   # wide per column descents: 41 samples, two rounds
+            (128, 2, 255, False)]  # the widest ranges, dense
 
 
 @pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
@@ -881,26 +889,57 @@ K4_CASES = [(128, 1, 4, False),   # the (16, 4) descent
 @pytest.mark.parametrize("ties", [False, True])
 def test_staged_refine_kernel_equals_plain(dev, objective, stride, C, N, per_lobe, ties):
     """K4 against its plain version on the card, bit for bit: every branch,
-    objective, range sizes 4 to 64, windows cut at both ends, n_valid under
-    W, 1 and 0, planted exact ties."""
+    objective, range sizes 4 to 255, windows cut at both ends, n_valid under
+    W, 1 and 0, planted exact ties; with the table made in the call where
+    it pays (staged_uses_table: one launch of each kernel, else K4 alone),
+    and the scoring alone on a table made before (chip_smoke.k4_score, as
+    chip_smoke.py times it), at a descent too."""
     D = 12 * stride + 2048
     W = stride + stride // 4
     nvs = [11 * stride + 301, W - 3, 1, 0]
     args = _k4(dev, stride * 31 + C * 7 + N, len(nvs), 777, D, N, C, stride, nvs, ties)
-    before = kernels.LAUNCHES["staged_refine"]
+    before = dict(kernels.LAUNCHES)
     got = kernels.staged_refine(*args, stride, objective, 2.0, per_lobe)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["staged_refine"] == before + 1
+    assert kernels.LAUNCHES["staged_refine"] == before["staged_refine"] + 1
+    table = kernels.staged_uses_table(N, stride, C, per_lobe)
+    assert kernels.LAUNCHES["staged_stats"] == before["staged_stats"] + table
     want = kernels.staged_refine_ref(*args, stride, objective, 2.0, per_lobe)
     assert _bits_equal(got, want)
     assert torch.isfinite(got[1][0]).sum() > 600 and not torch.isfinite(got[1][3]).any()
+    import chip_smoke
+
+    stats = kernels.staged_stats(args[1], objective, 2.0)
+    assert _bits_equal(chip_smoke.k4_score(kernels, *args, stride, objective, 2.0, per_lobe,
+                                           stats), want)
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("N", [4, 7, 16, 17, 32, 255])
+def test_staged_stats_kernel_equals_plain(dev, objective, N):
+    """K4's per-row table against its plain version on the card, bit for
+    bit, for a stack of 3 banks (zero rows past n_valid, flat rows) in one
+    launch and for one bank."""
+    ranges, bank, nv, lobes = _k4(dev, 11 + N, 3, 10, 3000, N, 1, 128, [2900, 1500, 0])
+    bank[:, ::37] = bank[:, ::37, :1]
+    before = kernels.LAUNCHES["staged_stats"]
+    got = kernels.staged_stats(bank, objective, 2.0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["staged_stats"] == before + 1
+    want = kernels.staged_stats_ref(bank, objective, 2.0)
+    assert got.shape == (3, 3000, 4)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    one = kernels.staged_stats(bank[1], objective, 2.0)
+    assert torch.equal(one.view(torch.int32), want[1].view(torch.int32))
 
 
 @pytest.mark.parametrize("stride,C,N,per_lobe", [(128, 1, 4, False), (128, 4, 4, False),
-                                                 (512, 4, 4, True), (128, 1, 32, False)])
+                                                 (512, 4, 4, True), (128, 1, 32, False),
+                                                 (128, 4, 32, False)])
 def test_staged_refine_stack_of_16_equals_single_launches(dev, stride, C, N, per_lobe):
     """A stack of 16 files with their own n_valid in one launch: each file
-    bit for bit its single launch."""
+    bit for bit its single launch (the dense 4 lobes at 32 taps: tile 8192
+    damped, the wide kernel)."""
     nvs = [11 * stride + 301 - 97 * b for b in range(16)]
     ranges, bank, nv, lobes = _k4(dev, 90 + C, 16, 500, 12 * stride + 1024, N, C, stride, nvs)
     for objective in ("balanced", "damped"):
@@ -935,7 +974,8 @@ def test_staged_refine_reads_n_valid_from_the_device_under_capture(dev):
 
 
 def test_staged_refine_never_runs_the_plain_version_on_the_card(dev, monkeypatch):
-    """No fallback: on a CUDA tensor the wrapper launches K4 or raises."""
+    """No fallback: on a CUDA tensor the wrapper launches K4 and its table
+    or raises."""
     args = _k4(dev, 3, 1, 300, 4096, 4, 1, 128, [3000])
     want = kernels.staged_refine_ref(*args, 128, "balanced", 2.0)
 
@@ -943,8 +983,11 @@ def test_staged_refine_never_runs_the_plain_version_on_the_card(dev, monkeypatch
         raise AssertionError("the plain version ran on the card")
 
     monkeypatch.setattr(kernels, "staged_refine_ref", refuse)
+    monkeypatch.setattr(kernels, "staged_stats_ref", refuse)
     assert _bits_equal(kernels.staged_refine(*args, 128, "balanced", 2.0), want)
     ranges, bank, nv, lobes = args
+    with pytest.raises(TypeError, match="bank has dtype"):
+        kernels.staged_stats(bank.double(), "balanced", 2.0)
     with pytest.raises(TypeError, match="n_valid must be an int32 tensor"):
         kernels.staged_refine(ranges, bank, [3000], lobes, 128, "balanced", 2.0)
     with pytest.raises(TypeError, match="lobes is torch.int64"):
@@ -961,13 +1004,15 @@ def test_staged_refine_never_runs_the_plain_version_on_the_card(dev, monkeypatch
 
 def test_staged_encodes_launch_k4_once(dev):
     """A staged single-shot encode (tile 512) and the damped stream's
-    global pass each launch K4 once, and the pass no longer runs the plain
-    refine on the card."""
+    global pass each launch K4 once, with its table where the windows are
+    dense (damped), and the pass no longer runs the plain refine on the
+    card."""
     sig = bench.make_signal(3.0)
-    for kw in ({"tile_size": 512}, {"tile_size": 512, "objective": "damped"}):
+    for kw, table in (({"tile_size": 512}, 0), ({"tile_size": 512, "objective": "damped"}, 1)):
         kernels.reset_launch_counts()
         port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
         assert kernels.LAUNCHES["staged_refine"] == 1
+        assert kernels.LAUNCHES["staged_stats"] == table  # the balanced descent: none
     calls = []
     real = kernels.refine_from_lobes  # what the plain version calls
     kernels.refine_from_lobes = lambda *a, **k: calls.append(1) or real(*a, **k)
@@ -978,4 +1023,5 @@ def test_staged_encodes_launch_k4_once(dev):
                                       objective="damped")
     finally:
         kernels.refine_from_lobes = real
-    assert kernels.LAUNCHES["staged_refine"] == 1 and not calls
+    assert kernels.LAUNCHES["staged_refine"] == 1 and not kernels.LAUNCHES["staged_stats"]
+    assert not calls

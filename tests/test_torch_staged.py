@@ -204,3 +204,97 @@ def test_wrapper_runs_the_plain_version_on_the_cpu():
     want = refine_from_lobes(r, b, 1000, lob, 128, 2.0, "damped")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert "staged_refine" in kernels.LAUNCHES
+
+
+def _window_gains_terms(monkeypatch, bank, r_c, objective, s_clip):
+    """_window_gains of every bank row against each range (cand (D, M)),
+    with the per-row terms it computes captured from its own calls: the
+    mean (its row_mean), and w and the clip threshold (what it hands
+    _gain_from_num). Returns (score (D, M), mean, w, thresh), each term
+    (D, M); thresh None but for damped."""
+    seen = {}
+    real_mean, real_gain = kernels.row_mean, kernels._gain_from_num
+
+    def row_mean(x):
+        seen["mean"] = real_mean(x)
+        return seen["mean"]
+
+    def gain_from_num(num, weight, thresh, clip):
+        seen["w"], seen["thresh"] = weight, thresh
+        return real_gain(num, weight, thresh, clip)
+
+    monkeypatch.setattr(kernels, "row_mean", row_mean)
+    monkeypatch.setattr(kernels, "_gain_from_num", gain_from_num)
+    D, M = bank.shape[0], r_c.shape[1]
+    cand = torch.arange(D)[:, None].expand(D, M)
+    score, _ = kernels._window_gains(r_c, bank, cand, torch.ones(D, M, dtype=torch.bool),
+                                     objective, s_clip)
+    monkeypatch.undo()
+    return score, seen["mean"], seen["w"], seen["thresh"]
+
+
+def _gains_from_table(r_c, bank, table, objective, s_clip):
+    """What K4's scoring does with its table: each row centred by the
+    table's mean, the two numerators summed tap by tap left to right, the
+    gains with the table's w and threshold, the fold. Returns (D, M)."""
+    N = bank.shape[1]
+    d = bank - table[:, :1]
+    w, th = table[:, 1, None], table[:, 2, None]
+    no = d[:, 0:1] * r_c[0][None]
+    nm = d[:, 0:1] * r_c[N - 1][None]
+    for j in range(1, N):
+        no = no + d[:, j : j + 1] * r_c[j][None]
+        nm = nm + d[:, j : j + 1] * r_c[N - 1 - j][None]
+    gains = []
+    for num in (no, nm):
+        g = num * num * w
+        if objective == "damped":
+            a = num.abs()
+            g = torch.where(a > th, abs(s_clip) * (2.0 * a - th), g)
+        gains.append(g)
+    return torch.where(gains[1] > gains[0], gains[1], gains[0])
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("N", [4, 7, 32])
+def test_staged_stats_ref_is_window_gains_row_terms(monkeypatch, objective, N):
+    """K4's per-row table (staged_stats_ref) holds, bit for bit, the terms
+    that _window_gains computes of each bank row: its mean, the weight w
+    and the damped clip threshold (0 for the other objectives), taken from
+    _window_gains' own calls; and scoring from the table gives
+    _window_gains' gains bit for bit, with no division per scored row.
+    The bank has zero rows past its n_valid, as K4's banks do."""
+    stride, s_clip = 16, 2.0
+    ranges, bank, _ = _inputs(N * 3 + len(objective), stride, 1, N, 11 * stride + 301, M=3)
+    bank[::37] = bank[::37, :1]  # flat rows: a centred energy of 0
+    r, b = torch.from_numpy(ranges), torch.from_numpy(bank)
+    r_c = (r - kernels.row_mean(r)[:, None]).T
+    score, mean, w, thresh = _window_gains_terms(monkeypatch, b, r_c, objective, s_clip)
+    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
+    table = kernels.staged_stats_ref(b, objective, s_clip)
+    assert table.shape == (len(b), 4) and table.dtype == torch.float32
+    assert torch.equal(bits(table[:, 0]), bits(mean[:, 0]))
+    assert torch.equal(bits(table[:, 1]), bits(w[:, 0]))
+    th = torch.zeros_like(w[:, 0]) if thresh is None else thresh[:, 0]
+    assert torch.equal(bits(table[:, 2]), bits(th)) and not table[:, 3].any()
+    assert (thresh is None) == (objective != "damped")
+    got = _gains_from_table(r_c, b, table, objective, s_clip)
+    assert torch.equal(bits(got), bits(score))
+    stack = kernels.staged_stats_ref(torch.stack([b, b.flip(0)]), objective, s_clip)
+    assert torch.equal(stack[0], table) and torch.equal(stack[1], table.flip(0))
+
+
+@pytest.mark.parametrize("N,stride,C,per_lobe,table", [
+    (4, 128, 1, False, False),   # the descent of a staged encode
+    (4, 512, 4, True, False),    # the global pass: a descent per column
+    (16, 32, 1, False, False),   # the (8,) descent
+    (4, 128, 4, False, True),    # dense windows
+    (4, 16, 1, False, True),     # one dense window at stride < 32
+    (8, 16, 3, True, True),      # dense per column
+    (17, 128, 1, False, True),   # wide ranges: always the table
+    (32, 512, 4, True, True)])
+def test_staged_uses_table(N, stride, C, per_lobe, table):
+    """K4 scores through its table at dense windows and every range size
+    over 16, and computes each row's terms in place at a descent of up to
+    16 taps."""
+    assert kernels.staged_uses_table(N, stride, C, per_lobe) is table
