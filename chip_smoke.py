@@ -66,8 +66,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 9b. wide_tiles: the 10 s file at tile 8192 (range size 32: coarse, the
    staged refine after K1, or damped K3) and at tile 16384 (range size 64:
    the exact branch), where K1 and K3 run their wide kernels
-   (csrc/scan_wide.cuh; held to their plain versions at range sizes 17, 32
-   and 64 with the kernel checks of phase 3): the JAX package's sentinels
+   (csrc/scan_wide.cuh; held to their plain versions at range sizes 17 to
+   255 with the kernel checks of phase 3): the JAX package's sentinels
    and SNR (WIDE); `compress --tile 8192` and `--tile 16384` through the
    CLI, the API's bytes, and back;
 10. multichannel and segment: a stereo pair through mid/side, both
@@ -587,7 +587,7 @@ def ptxas_summary(log: str) -> dict:
     return {"kernels": len(entries), "spill_bytes": 0,
             "max_registers": max((v.get("registers", 0) for v in entries.values()), default=0),
             "registers": {short(k): v.get("registers") for k, v in entries.items()
-                          if re.search(r"ILi4E", k) or "merge" in k}}
+                          if re.search(r"ILi4E", k) or "merge" in k or "wide" in k}}
 
 
 def kernel_inputs(dev, seed: int, M: int, D: int, objective: str, N: int = 4):
@@ -982,17 +982,54 @@ def stream_kernel_checks(kernels, enc, dev, sig, checks):
 #: scans of the 10 s file's plans at tiles 4352, 8192 and 16384: the coarse
 #: grids of the staged refine (K1 one lobe, K3 the damped profile's four),
 #: the exact branch's whole bank at tile 16384, and K3 on that tile's coarse
-#: grid (search="coarse").
+#: grid (search="coarse"); then the exact branch at tiles 32768 (damped) and
+#: 65280 (balanced), the widest block-shape classes (up to 128 and 255 taps).
+#: scripts/compare_scan_kernels.py times the same list.
 WIDE_CHECKS = [("k1_wide_n17", "search_scan", 17, 28672, 896, "balanced"),
                ("k3_wide_n17", "topc_scan", 17, 28672, 896, "damped"),
                ("k1_wide_n32", "search_scan", 32, 14336, 448, "balanced"),
                ("k3_wide_n32", "topc_scan", 32, 14336, 448, "damped"),
                ("k1_wide_n64_exact", "search_scan", 64, 7168, 28672, "balanced"),
-               ("k3_wide_n64", "topc_scan", 64, 7168, 224, "damped")]
+               ("k3_wide_n64", "topc_scan", 64, 7168, 224, "damped"),
+               ("k1_wide_n128_exact", "search_scan", 128, 3584, 14336, "damped"),
+               ("k1_wide_n255_exact", "search_scan", 255, 1792, 6144, "balanced")]
+
+
+def encode_scan_calls(tile_size: int, objective: str):
+    """The K1 and K3 calls of one 10 s encode of bench.make_signal at
+    `tile_size` on the card: [(name, args, kwargs)] in call order, each
+    tensor cloned as the eager encode passed it (a captured replay calls no
+    wrapper). For timing and counting the kernels on a real file's inputs
+    (scripts/compare_scan_kernels.py, scripts/count_wide_marks.py)."""
+    import torch
+    from bench import make_signal
+
+    from fwav_tpu_torch.models import encode as enc
+
+    calls = []
+
+    def record(name, fn):
+        def wrapper(*args, **kw):
+            if not torch.cuda.is_current_stream_capturing():
+                calls.append((name, tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                              dict(kw)))
+            return fn(*args, **kw)
+        return wrapper
+
+    saved = enc.search_scan, enc.topc_scan
+    enc.search_scan, enc.topc_scan = record("search_scan", saved[0]), record("topc_scan", saved[1])
+    try:
+        enc.compress_audio_arrays(make_signal(10.0), 44100, 2, tile_size=tile_size,
+                                  objective=objective, device="cuda")
+    finally:
+        enc.search_scan, enc.topc_scan = saved
+    if not calls:
+        raise RuntimeError(f"the encode at tile {tile_size} ({objective}) called no scan")
+    return calls
 
 
 def wide_kernel_checks(kernels, dev, checks):
-    """K1 and K3 at range sizes 17, 32 and 64 (WIDE_CHECKS) against their
+    """K1 and K3 at range sizes 17 to 255 (WIDE_CHECKS) against their
     plain versions: 0 differing rows and, for K1, 0 score error; timed,
     with the bound of these inputs."""
     slow = {"plain_reps": 3, "plain_warmup": 1}

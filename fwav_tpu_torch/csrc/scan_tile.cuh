@@ -68,8 +68,10 @@ namespace fwav {
 constexpr int kRangesPerBlock = 128;  // 32 * MT threads hold 8 * MT ranges
 constexpr int kTileD = 128;           // domains per staged tile
 constexpr int kN8 = kTileD / 8;       // n8 MMA tiles per staged tile (2 bits each)
-// The numerators' error is under 2^-16 |r| |b'| for the split sums and
-// 2^-20 for the plain float32 sums (N <= 16); the margins take 2^-13.
+// For N <= 16 (these kernels): the numerators' error is under 932 2^-24
+// |r| |b'| < 2^-14 (the split's dropped terms, the MMAs' accumulation and
+// the plain float32 sums; scan_wide.cuh derives the bound for any N); the
+// margins take 2^-13, twice that. The wide kernels grow it with N.
 constexpr float kMarginSqrt = 0x1p-13f;  // of |r| |b'| (balanced, affine)
 constexpr float kMarginClip = 0x1p-12f;  // of the clip branch's 2 max(c, t w) |r| |b|
 constexpr float kMarginFloor = 0x1p-100f;

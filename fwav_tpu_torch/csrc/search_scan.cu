@@ -28,8 +28,9 @@
 // Fragment layout: A rows 0-7 = 8 ranges, rows 8-15 = the same reversed,
 // so c0, c1 = num_o and c2, c3 = num_m of range g for domains 2t, 2t+1.
 // Range sizes of 17 to 255 taps take search_scan_wide_kernel instead
-// (scan_wide.cuh: exact float32 for every pair, the same keep policy and
-// the same split and merge).
+// (scan_wide.cuh: the same tensor-core screen and exact confirm at a
+// runtime tap count, with A's fragments in shared memory; the same keep
+// policy, domain split and merge).
 
 #include "scan_tile.cuh"
 #include "scan_wide.cuh"
@@ -110,44 +111,72 @@ __global__ void __launch_bounds__(fwav::Warp<N, 1>::kThreads,
   }
 }
 
-// The wide scan (N of 17 to 255, a runtime value): 32 ranges a block, every
-// pair in exact float32 (scan_wide.cuh), each warp's running best over its
-// slice of every tile, then the 4 warps' bests of a range merged by (score
-// descending, index ascending). Grid and outputs as search_scan_kernel's.
-template <bool kClip>
-__global__ void __launch_bounds__(fwav::kWideThreads)
+// The wide scan (N of 17 to 255, a runtime value; scan_wide.cuh) in block
+// shape class kCls: each thread's running best of its ranges over its
+// slice of every tile, merged over the quad, then over the kDG warps that
+// share a range through shared memory by (score descending, index
+// ascending). Grid and outputs as search_scan_kernel's, with
+// WideShape::kRanges ranges a block.
+template <int kCls, bool kClip>
+__global__ void __launch_bounds__(fwav::WideShape<kCls, 1>::kThreads, 1)
     search_scan_wide_kernel(ScanArgs stack, int N, int d_per_split,
                             float* __restrict__ out_score, int* __restrict__ out_idx) {
+  using Shape = fwav::WideShape<kCls, 1>;
+  constexpr int MT = Shape::kMT, R = Shape::kRanges, DG = Shape::kDG;
   extern __shared__ float4 wide_smem[];
-  __shared__ float part_s[fwav::kWideWarps][32];
-  __shared__ int part_i[fwav::kWideWarps][32];
   const ScanArgs a = fwav::wide_file_args(stack, blockIdx.z, N);
   const size_t out0 = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * a.M;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int d0 = blockIdx.y * d_per_split;
   const int d1 = min(a.D, d0 + d_per_split);
 
-  ArgmaxKeep<1, kClip> keep;
+  ArgmaxKeep<MT, kClip> keep;
   keep.c = a.c;
-  keep.best[0] = -CUDART_INF_F;
-  keep.best_i[0] = 0;
-  fwav::wide_scan<kClip>(reinterpret_cast<float*>(wide_smem), a, N, d0, d1, keep);
-  part_s[warp][lane] = keep.best[0];
-  part_i[warp][lane] = keep.best_i[0];
-  __syncthreads();
-  if (warp != 0) return;
-  float s = part_s[0][lane];
-  int i = part_i[0][lane];
-  for (int w = 1; w < fwav::kWideWarps; ++w) {
-    if (fwav::beats(part_s[w][lane], part_i[w][lane], s, i)) {
-      s = part_s[w][lane];
-      i = part_i[w][lane];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    keep.best[mt] = -CUDART_INF_F;
+    keep.best_i[mt] = 0;
+  }
+  fwav::wide_scan<Shape, kClip>(wide_smem, a, N, d0, d1, keep);
+
+  // [DG][R] partial bests in the scan's buffer (wide_scan ends with a barrier)
+  float* part_s = reinterpret_cast<float*>(wide_smem);
+  int* part_i = reinterpret_cast<int*>(part_s + DG * R);
+  const int dg = warp;  // the warp's slice of every tile's domains
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float s = keep.best[mt];
+    int i = keep.best_i[mt];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float os = __shfl_xor_sync(0xffffffffu, s, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+      if (fwav::beats(os, oi, s, i)) {
+        s = os;
+        i = oi;
+      }
+    }
+    if ((lane & 3) == 0) {
+      const int row = 8 * mt + (lane >> 2);
+      part_s[dg * R + row] = s;
+      part_i[dg * R + row] = i;
     }
   }
-  const int m = blockIdx.x * fwav::kWideLanes + lane;
-  if (m < a.M) {
-    out_score[out0 + m] = s;
-    out_idx[out0 + m] = i;
+  __syncthreads();
+  for (int row = threadIdx.x; row < R; row += blockDim.x) {
+    float s = part_s[row];
+    int i = part_i[row];
+    for (int w = 1; w < DG; ++w) {
+      if (fwav::beats(part_s[w * R + row], part_i[w * R + row], s, i)) {
+        s = part_s[w * R + row];
+        i = part_i[w * R + row];
+      }
+    }
+    const int m = blockIdx.x * R + row;
+    if (m < a.M) {
+      out_score[out0 + m] = s;
+      out_idx[out0 + m] = i;
+    }
   }
 }
 
@@ -190,18 +219,27 @@ void launch_scan(const ScanArgs& a, int B, int n_split, int d_per_split, float* 
                                                                out_idx);
 }
 
-template <bool kClip>
+template <int kCls, bool kClip>
 int launch_wide(const ScanArgs& a, int B, int N, int n_split, int d_per_split,
                 float* out_score, int* out_idx, cudaStream_t stream) {
-  const dim3 grid((a.M + fwav::kWideLanes - 1) / fwav::kWideLanes, n_split, B);
-  const size_t smem = fwav::wide_smem_bytes(N);
+  using Shape = fwav::WideShape<kCls, 1>;
+  const dim3 grid((a.M + Shape::kRanges - 1) / Shape::kRanges, n_split, B);
+  const size_t smem = fwav::wide_smem_bytes<Shape>(N);
   const cudaError_t e = cudaFuncSetAttribute(
-      search_scan_wide_kernel<kClip>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      search_scan_wide_kernel<kCls, kClip>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  search_scan_wide_kernel<kClip><<<grid, fwav::kWideThreads, smem, stream>>>(
+  search_scan_wide_kernel<kCls, kClip><<<grid, Shape::kThreads, smem, stream>>>(
       a, N, d_per_split, out_score, out_idx);
   return 0;
+}
+
+template <int kCls>
+int launch_wide_clip(const ScanArgs& a, int B, int N, int n_split, int d_per_split,
+                     float* out_score, int* out_idx, cudaStream_t stream) {
+  return a.thresh != nullptr
+             ? launch_wide<kCls, true>(a, B, N, n_split, d_per_split, out_score, out_idx, stream)
+             : launch_wide<kCls, false>(a, B, N, n_split, d_per_split, out_score, out_idx, stream);
 }
 
 }  // namespace
@@ -243,8 +281,9 @@ int fwav_graph_node_kinds(void* graph, void** nodes, long long capacity,
 
 // A stack of B files: r_c (B, M, N), bankT (B, N, D), w (B, D), valid
 // (B, D), thresh (B, D) or null: float32 / int8, contiguous, on the device
-// of `stream`; 4 <= N <= 255 (17 and up: the wide kernel). d_per_split is a
-// multiple of 128 (the staged tile). With
+// of `stream`; 4 <= N <= 255 (17 and up: the wide kernel, whose blocks
+// hold 32 ranges). d_per_split is a multiple of 128 (the staged tile, and
+// a multiple of every wide tile). With
 // n_split > 1 the partial bests go to part_score/part_idx (B, n_split, M)
 // and a merge pass writes score/idx (B, M); with n_split == 1 the scan
 // writes them directly. Returns cudaGetLastError() after the launches.
@@ -271,10 +310,11 @@ int fwav_search_scan(const float* r_c, const float* bankT, const float* w,
     default: {
       if (N < fwav::kWideMinN || N > fwav::kWideMaxN)
         return static_cast<int>(cudaErrorInvalidValue);
+      const int cls = fwav::wide_class(N);
       const int code =
-          a.thresh != nullptr
-              ? launch_wide<true>(a, B, N, n_split, d_per_split, s_out, i_out, st)
-              : launch_wide<false>(a, B, N, n_split, d_per_split, s_out, i_out, st);
+          cls == 0   ? launch_wide_clip<0>(a, B, N, n_split, d_per_split, s_out, i_out, st)
+          : cls == 1 ? launch_wide_clip<1>(a, B, N, n_split, d_per_split, s_out, i_out, st)
+                     : launch_wide_clip<2>(a, B, N, n_split, d_per_split, s_out, i_out, st);
       if (code != 0) return code;
     }
   }
@@ -286,3 +326,5 @@ int fwav_search_scan(const float* r_c, const float* bankT, const float* w,
 }
 
 }  // extern "C"
+
+FWAV_WIDE_MARKS_READER(search_scan)

@@ -39,77 +39,17 @@
 // Fragment layout: A rows 0-7 = 8 ranges, rows 8-15 = the same reversed,
 // so c0, c1 = num_o and c2, c3 = num_m of range g for domains 2t, 2t+1.
 // Range sizes of 17 to 255 taps take topc_scan_wide_kernel instead
-// (scan_wide.cuh: exact float32 for every pair, the same lists and the same
-// sorted insertion).
+// (topc_wide.cuh, built in one source per block-shape class, on
+// scan_wide.cuh: the same tensor-core screen against the list's tail and
+// exact confirm at a runtime tap count, with A's fragments in shared
+// memory; the same lists, sorted insertion and quad merge, then a merge
+// over the warps that share a range).
 
 #include "scan_tile.cuh"
-#include "scan_wide.cuh"
+#include "topc_keep.cuh"
+#include "topc_wide.cuh"
 
 namespace {
-
-using fwav::ScanArgs;
-
-// Insert (s, i) into the sorted list if it beats the tail in the order
-// `Better`; unrolled, so the list stays in registers.
-template <int C, class Better>
-__device__ __forceinline__ void insert(float (&bs)[C], int (&bi)[C], float s, int i,
-                                       Better better) {
-  if (!better(s, i, bs[C - 1], bi[C - 1])) return;
-  bool placed = false;
-#pragma unroll
-  for (int q = C - 1; q >= 1; --q) {
-    if (!placed) {
-      if (better(s, i, bs[q - 1], bi[q - 1])) {
-        bs[q] = bs[q - 1];
-        bi[q] = bi[q - 1];
-      } else {
-        bs[q] = s;
-        bi[q] = i;
-        placed = true;
-      }
-    }
-  }
-  if (!placed) {
-    bs[0] = s;
-    bi[0] = i;
-  }
-}
-
-struct Greater {  // in-thread order: later domains have higher indices
-  __device__ __forceinline__ bool operator()(float sa, int, float sb, int) const {
-    return sa > sb;
-  }
-};
-
-struct Beats {
-  __device__ __forceinline__ bool operator()(float sa, int ia, float sb, int ib) const {
-    return fwav::beats(sa, ia, sb, ib);
-  }
-};
-
-template <int MT, int C, bool kClip>
-struct TopcKeep {
-  static constexpr int kRank = C;  // a pick must reach the C-th best
-
-  float bs[MT][C];
-  int bi[MT][C];
-  float c;
-
-  // topc_scan_ref's score: damped a = max(|num_o|, |num_m|), c (2a - t)
-  // where a > t, else a^2 w; otherwise max(num_o^2 w, num_m^2 w)
-  __device__ __forceinline__ float exact(float no, float nm, float w, float t) const {
-    if (kClip) {
-      const float a = fmaxf(fabsf(no), fabsf(nm));
-      return a > t ? __fmul_rn(__fsub_rn(__fmul_rn(2.f, a), t), c)
-                   : __fmul_rn(__fmul_rn(a, a), w);
-    }
-    return fmaxf(__fmul_rn(__fmul_rn(no, no), w), __fmul_rn(__fmul_rn(nm, nm), w));
-  }
-  __device__ __forceinline__ void keep(int mt, float s, int d) {
-    if (s > bs[mt][C - 1]) insert<C>(bs[mt], bi[mt], s, d, Greater());
-  }
-  __device__ __forceinline__ float entry(int mt, int k) const { return bs[mt][k]; }
-};
 
 template <int N, int C, bool kClip>
 __global__ void __launch_bounds__(fwav::Warp<N, C>::kThreads,
@@ -157,72 +97,6 @@ __global__ void __launch_bounds__(fwav::Warp<N, C>::kThreads,
       }
     }
   }
-}
-
-// The wide scan (N of 17 to 255, a runtime value): 32 ranges a block, every
-// pair in exact float32 (scan_wide.cuh), each thread's sorted list over its
-// slice of every tile, then the other 3 warps' lists of a range inserted
-// into warp 0's by (score descending, index ascending). Output as
-// topc_scan_kernel's.
-template <int C, bool kClip>
-__global__ void __launch_bounds__(fwav::kWideThreads)
-    topc_scan_wide_kernel(ScanArgs stack, int N, int c_out, int* __restrict__ out_idx) {
-  extern __shared__ float4 wide_smem[];
-  __shared__ float part_s[fwav::kWideWarps][32][C];
-  __shared__ int part_i[fwav::kWideWarps][32][C];
-  const ScanArgs a = fwav::wide_file_args(stack, blockIdx.z, N);
-  out_idx += (size_t)blockIdx.z * c_out * a.M;  // (B, c_out, M)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  TopcKeep<1, C, kClip> keep;
-  keep.c = a.c;
-#pragma unroll
-  for (int q = 0; q < C; ++q) {
-    keep.bs[0][q] = -CUDART_INF_F;
-    keep.bi[0][q] = 0;
-  }
-  fwav::wide_scan<kClip>(reinterpret_cast<float*>(wide_smem), a, N, 0, a.D, keep);
-#pragma unroll
-  for (int q = 0; q < C; ++q) {
-    part_s[warp][lane][q] = keep.bs[0][q];
-    part_i[warp][lane][q] = keep.bi[0][q];
-  }
-  __syncthreads();
-  if (warp != 0) return;
-  for (int w = 1; w < fwav::kWideWarps; ++w) {
-#pragma unroll
-    for (int q = 0; q < C; ++q)
-      insert<C>(keep.bs[0], keep.bi[0], part_s[w][lane][q], part_i[w][lane][q], Beats());
-  }
-  const int m = blockIdx.x * fwav::kWideLanes + lane;
-  if (m < a.M) {
-#pragma unroll
-    for (int q = 0; q < C; ++q) {
-      if (q < c_out)
-        out_idx[(size_t)q * a.M + m] = isfinite(keep.bs[0][q]) ? keep.bi[0][q] : -1;
-    }
-  }
-}
-
-template <int C, bool kClip>
-int launch_wide(const ScanArgs& a, int B, int N, int c_out, int* out_idx,
-                cudaStream_t stream) {
-  const dim3 grid((a.M + fwav::kWideLanes - 1) / fwav::kWideLanes, 1, B);
-  const size_t smem = fwav::wide_smem_bytes(N);
-  const cudaError_t e = cudaFuncSetAttribute(topc_scan_wide_kernel<C, kClip>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  topc_scan_wide_kernel<C, kClip><<<grid, fwav::kWideThreads, smem, stream>>>(a, N, c_out,
-                                                                               out_idx);
-  return 0;
-}
-
-template <int C>
-int launch_wide_clip(const ScanArgs& a, int B, int N, int c_out, int* out_idx,
-                     cudaStream_t stream) {
-  return a.thresh != nullptr ? launch_wide<C, true>(a, B, N, c_out, out_idx, stream)
-                             : launch_wide<C, false>(a, B, N, c_out, out_idx, stream);
 }
 
 template <int N, int C>
@@ -276,9 +150,9 @@ int fwav_topc_scan(const float* r_c, const float* bankT, const float* w,
     default:
       if (N < fwav::kWideMinN || N > fwav::kWideMaxN || C > 8)
         return static_cast<int>(cudaErrorInvalidValue);
-      code = C <= 2   ? launch_wide_clip<2>(a, B, N, C, out_idx, st)
-             : C <= 4 ? launch_wide_clip<4>(a, B, N, C, out_idx, st)
-                      : launch_wide_clip<8>(a, B, N, C, out_idx, st);
+      code = fwav::wide_class(N) == 0   ? fwav::topc_wide_n64(a, B, N, C, out_idx, st)
+             : fwav::wide_class(N) == 1 ? fwav::topc_wide_n128(a, B, N, C, out_idx, st)
+                                        : fwav::topc_wide_n255(a, B, N, C, out_idx, st);
   }
   if (code != 0) return code;
   return static_cast<int>(cudaGetLastError());

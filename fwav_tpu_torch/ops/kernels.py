@@ -11,8 +11,9 @@ kernels:
   the sorted top-C domains per range, the damped profile's coarse lobes.
   CUDA source: csrc/topc_scan.cu.
   K1 and K3 take every range size of 4 to 255 taps, as the TPU kernels
-  take any: up to 16 the tensor-core kernels of csrc/scan_tile.cuh, from
-  17 on (tiles from 4352 samples) the wide kernels of csrc/scan_wide.cuh.
+  take any: up to 16 the kernels of csrc/scan_tile.cuh, from 17 on (tiles
+  from 4352 samples) the wide kernels of csrc/scan_wide.cuh, the same
+  tensor-core screen and exact confirm at a runtime tap count.
 - `refine_window` (K2) replaces `_refine_kernel` (refine_window_pallas)
   and the per-lobe merge of its callers: the dense window refine around
   every coarse lobe of a range, in one launch. Its per-position table
@@ -80,13 +81,16 @@ _OBJECTIVES = {"balanced": 0, "affine": 1, "damped": 2}
 #: (refine_blocks_ok) refuses, so models/encode.py _plan_search sends it to
 #: the staged refine.
 _KERNEL_N = range(4, 17)
-#: Range sizes of K1 and K3: up to 16 the tensor-core kernels
-#: (csrc/scan_tile.cuh), from 17 the wide ones (csrc/scan_wide.cuh).
+#: Range sizes of K1 and K3: up to 16 the kernels of csrc/scan_tile.cuh
+#: (N a template, A's fragments in registers), from 17 the wide ones of
+#: csrc/scan_wide.cuh (N at run time, A's fragments in shared memory).
 _SCAN_N = range(4, 256)
-#: Domains per staged bank tile of K1 and K3 (csrc/scan_tile.cuh).
+#: Domains per staged bank tile of K1 and K3 (csrc/scan_tile.cuh); the wide
+#: kernels stage 128, 64 or 32 by N, and a domain split of K1 is a
+#: multiple of 128 in every case.
 _SCAN_TILE_D = 128
-#: Ranges per block of K1 and K3 (csrc/scan_tile.cuh), and of their wide
-#: kernels (csrc/scan_wide.cuh).
+#: Ranges per block of K1 (csrc/scan_tile.cuh kRangesPerBlock), and of its
+#: wide kernel (csrc/scan_wide.cuh WideShape<cls, 1>::kRanges).
 _SCAN_RANGES = 128
 _WIDE_RANGES = 32
 #: Largest C of the top-C kernel (its list lives in registers).

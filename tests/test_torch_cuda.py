@@ -669,6 +669,132 @@ def test_wide_scans_stack_equals_single_launches(dev):
         assert torch.equal(lists[b], kernels.topc_scan(*f[:4], 4, f[4], f[5]))
 
 
+#: Range sizes of the wide sweep: chunk boundaries (4 taps a chunk), and
+#: every block-shape class of csrc/scan_wide.cuh and its edges (up to 64,
+#: 128 and 255 taps).
+WIDE_SWEEP_N = [17, 19, 31, 33, 48, 64, 65, 100, 128, 129, 200, 255]
+
+
+def _wide_planted(dev, seed, M, D, N, objective):
+    """_k1's inputs with what hurts a screen planted: negative balanced
+    weights, a zero range, a whole 128-domain tile without a valid domain,
+    bank rows copied exactly (h..h+39 of 0..39) and copies whose last tap
+    moves by one ulp (2h..2h+39 of 40..79)."""
+    r_c, bankT, w, valid, t, c = _k1(dev, seed, M, D, N, objective)
+    r_c[3] = 0
+    if objective == "balanced":
+        w[::7] = -w[::7].abs()
+    valid[128:256] = False
+    h = D // 3
+    bankT[:, h : h + 40] = bankT[:, :40]
+    bankT[:, 2 * h : 2 * h + 40] = bankT[:, 40:80]
+    bankT[N - 1, 2 * h : 2 * h + 40] = torch.nextafter(bankT[N - 1, 40:80],
+                                                       torch.tensor(1.0, device=dev))
+    for x in (w, t, valid):
+        if x is not None:
+            x[h : h + 40] = x[:40]
+            x[2 * h : 2 * h + 40] = x[40:80]
+    return r_c, bankT, w, valid, t, c
+
+
+@pytest.mark.parametrize("objective", ["balanced", "affine", "damped"])
+@pytest.mark.parametrize("N", WIDE_SWEEP_N)
+def test_wide_scans_sweep_equal_plain(dev, objective, N):
+    """K1 and K3 (C 1, 2, 4, 8) at every range size of the sweep, on
+    planted inputs (_wide_planted), ragged range blocks and tiles, against
+    their plain versions, exactly; one launch each under the wide keys."""
+    r_c, bankT, w, valid, t, c = _wide_planted(dev, 31 * N + len(objective), 300 + N % 7,
+                                               1500 + 3 * N, N, objective)
+    before = dict(kernels.LAUNCHES)
+    s_k, i_k = kernels.search_scan(r_c, bankT, w, valid, t, c)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {**before, "search_scan_wide": before["search_scan_wide"] + 1}
+    s_p, i_p = kernels.search_scan_ref(r_c, bankT, w, valid, t, c)
+    assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
+    for C in (1, 2, 4, 8):
+        got = kernels.topc_scan(r_c, bankT, w, valid, C, t, c)
+        assert torch.equal(got, kernels.topc_scan_ref(r_c, bankT, w, valid, C, t, c)), C
+    assert kernels.LAUNCHES["topc_scan_wide"] == before["topc_scan_wide"] + 4
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+def test_wide_scans_planted_near_ties_at_255(dev, objective):
+    """At 255 taps a bank whose second half copies its first exactly, and
+    whose third quarter is a copy with the last tap one ulp off: the lower
+    copy wins every exact tie, and the one-ulp rows are picked only where
+    the plain version picks them."""
+    N, M, D = 255, 500, 2000
+    r_c, bankT, w, valid, t, c = _k1(dev, 77, M, D, N, objective)
+    h = D // 2
+    bankT[:, h:] = bankT[:, :h]
+    bankT[N - 1, h : h + h // 2] = torch.nextafter(bankT[N - 1, : h // 2],
+                                                   torch.tensor(-1.0, device=dev))
+    for x in (w, t, valid):
+        if x is not None:
+            x[h:] = x[:h]
+    s_k, i_k = kernels.search_scan(r_c, bankT, w, valid, t, c)
+    s_p, i_p = kernels.search_scan_ref(r_c, bankT, w, valid, t, c)
+    assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
+    for C in (1, 4, 8):
+        got = kernels.topc_scan(r_c, bankT, w, valid, C, t, c)
+        assert torch.equal(got, kernels.topc_scan_ref(r_c, bankT, w, valid, C, t, c)), C
+    exact = i_k[(i_k >= h + h // 2)]  # exact copies never win over their originals
+    assert exact.numel() == 0
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+@pytest.mark.parametrize("N", [17, 64, 255])
+def test_wide_scans_tiny_ranges_equal_plain(dev, objective, N):
+    """Ranges scaled to 1e-23..1e-21 (one factor a range): num^2 w falls
+    into float32's subnormals or to 0, so many scores tie and the plain
+    version picks the lowest index, and the ranges' sums of squares
+    underflow. K1 and K3 (C 1, 4, 8) pick exactly what the plain versions
+    pick (csrc/scan_wide.cuh parts (5)-(7): the margins' absolute term,
+    the norms bounded from above), the first tile's bound included."""
+    r_c, bankT, w, valid, t, c = _k1(dev, 900 + N, 600, 3000, N, objective)
+    scale = 10.0 ** np.random.default_rng(N).uniform(-23, -21, (r_c.shape[0], 1))
+    r_c *= torch.from_numpy(scale.astype(np.float32)).to(dev)
+    s_k, i_k = kernels.search_scan(r_c, bankT, w, valid, t, c)
+    s_p, i_p = kernels.search_scan_ref(r_c, bankT, w, valid, t, c)
+    assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
+    assert (s_p[s_p > 0] < 1e-20).all()  # the scores are tiny indeed
+    for C in (1, 4, 8):
+        got = kernels.topc_scan(r_c, bankT, w, valid, C, t, c)
+        assert torch.equal(got, kernels.topc_scan_ref(r_c, bankT, w, valid, C, t, c)), C
+
+
+@pytest.mark.parametrize("N", [64, 255])
+def test_wide_search_scan_splits_the_domains(dev, N):
+    """Few ranges and a large bank: the wrapper splits the domains over
+    blockIdx.y (a multiple of 128 each) and the merge keeps the lowest
+    index; the bank's second half copies its first."""
+    r_c, bankT, w, valid, t, c = _k1(dev, 5 + N, 50, 20000, N, "balanced")
+    bankT[:, 10000:] = bankT[:, :10000]
+    w[10000:] = w[:10000]
+    valid[10000:] = valid[:10000]
+    s_k, i_k = kernels.search_scan(r_c, bankT, w, valid)
+    s_p, i_p = kernels.search_scan_ref(r_c, bankT, w, valid)
+    assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
+    assert (i_k < 10000).all()
+
+
+@pytest.mark.parametrize("N", [64, 255])
+def test_wide_scans_stack_of_3_equals_single_launches(dev, N):
+    """A stack of 3 files in one launch of each wide kernel, bit for bit
+    its single launches and the plain versions' loop."""
+    files = _k1_files(dev, 3, 400, 1300, N, "damped")
+    st = _stack(files)
+    s, i = kernels.search_scan(*st)
+    lists = kernels.topc_scan(*st[:4], 4, st[4], st[5])
+    for b, f in enumerate(files):
+        s_b, i_b = kernels.search_scan(*f)
+        assert torch.equal(s[b], s_b) and torch.equal(i[b], i_b), b
+        assert torch.equal(lists[b], kernels.topc_scan(*f[:4], 4, f[4], f[5])), b
+    s_p, i_p = kernels.search_scan_ref(*st)
+    assert torch.equal(s, s_p) and torch.equal(i, i_p)
+    assert torch.equal(lists, kernels.topc_scan_ref(*st[:4], 4, st[4], st[5]))
+
+
 def test_window_refine_refuses_wide_ranges(dev):
     """K2 and its table stop at 16 taps, and say why."""
     ext, lobes, ranges, n_valid, stride, block_len = _k2(dev, 2, 64, 17, 1)

@@ -601,3 +601,220 @@ def test_gain_topk_scan_is_the_jax_functions_counterpart(objective, C):
 
     # the JAX scan's DEFAULT matmul precision is full float32 on the CPU
     _assert_same_lists(got.numpy(), np.asarray(want), gain)
+
+
+# --- the wide scans' screen margin (csrc/scan_wide.cuh) ------------------------
+
+
+def _wide_margin(N):
+    """The margin of the wide screen, of |r| |x|: csrc/scan_wide.cuh
+    wide_margin (the formula its header derives, "wide_margin(N) = max(2^-13,
+    (58 Q + 2 N + 1600) 2^-24)")."""
+    Q = -(-N // 4)
+    return max(2.0 ** -13, (58 * Q + 2 * N + 1600) * 2.0 ** -24)
+
+
+def test_wide_margin_is_the_headers_and_never_under_the_narrow_one():
+    """The header states the formula that _wide_margin carries and the
+    absolute terms that _score_margin carries, and the margin is
+    scan_tile.cuh's 2^-13 at the narrow range sizes and grows from there."""
+    from pathlib import Path
+
+    csrc = Path(kernels.__file__).parent.parent / "csrc"
+    src = (csrc / "scan_wide.cuh").read_text()
+    assert "fmaxf(0x1p-13f, (58.f * Q + 2.f * N + 1600.f) * 0x1p-24f)" in src
+    for term in ("sqrtf(b2) + 0x1p-71f", "sqrtf(r2) + 0x1p-71f",
+                 "0x1p-74f * sqrtf(fmaxf(w, 0.f) + 1.f)",
+                 "fmaf(0x1p-111f, lip, fmaf(0x1p-147f, fabsf(w) + 2.f, 2.f * jump))",
+                 "fabs(ctd - ttw) + 0x1p-50 * (ctd + fabs(ttw))",
+                 "fmaxf(a + d > t ? c2 : 0.f, a - d <= t ? 2.f * fabsf(w) * (a + d) : 0.f)",
+                 "f = margin * bn;"):
+        assert term in src, term
+    assert "kMarginSqrt = 0x1p-13f" in (csrc / "scan_tile.cuh").read_text()
+    assert all(_wide_margin(n) == 2.0 ** -13 for n in range(4, 25))
+    steps = [_wide_margin(n) for n in range(17, 256)]
+    assert steps == sorted(steps) and steps[-1] < 2.0 ** -11
+
+
+def _split(x):
+    """scan_tile.cuh split2: hi = bf16(x), lo = bf16(x - hi), both rounded
+    to nearest even; x - hi is exact in float32."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+_TWO = torch.tensor(2.0, dtype=torch.float64)
+_NORMAL = 2.0 ** -126  # float32's least normal
+
+
+def _mma(acc, prods, down):
+    """One MMA as csrc/scan_wide.cuh parts (2) and (5) model its worst: the
+    accumulator and the 12 products aligned to the largest one's exponent,
+    each cut to a multiple of that one's last place (toward zero, or with
+    `down` toward -inf), summed, rounded once to float32; every subnormal
+    product and result flushed to zero."""
+    prods = torch.where(prods.abs() < _NORMAL, 0.0, prods)
+    terms = torch.cat([acc.double()[..., None], prods], -1)
+    e = torch.frexp(terms).exponent  # terms = m 2^e, 1/2 <= |m| < 1
+    e = torch.where(terms == 0, -1000, e)  # a zero sets no exponent
+    unit = _TWO.pow((e.amax(-1, keepdim=True) - 24).double())
+    q = terms / unit
+    out = ((q.floor() if down else q.trunc()) * unit).sum(-1).float()
+    return torch.where(out.abs() < _NORMAL, 0.0, out)
+
+
+def _screened_numerators(r, x, down):
+    """The wide screen's numerators of every (range, row) pair: per 4-tap
+    chunk the three BF16 products hi.hi + lo.hi + hi.lo, exact, added to
+    a float32 accumulator by _mma, chunk by chunk in order, or with `down`
+    in reversed order and cut toward -inf."""
+    M, N = r.shape
+    Q = -(-N // 4)
+    pad = 4 * Q - N
+    rh, rl = (torch.nn.functional.pad(t, (0, pad)).double()[:, None] for t in _split(r))
+    xh, xl = (torch.nn.functional.pad(t, (0, pad)).double()[None] for t in _split(x))
+    acc = torch.zeros((M, x.shape[0]), dtype=torch.float32)
+    for q in (reversed(range(Q)) if down else range(Q)):
+        c = slice(4 * q, 4 * q + 4)
+        prods = torch.cat([rh[..., c] * xh[..., c], rl[..., c] * xh[..., c],
+                           rh[..., c] * xl[..., c]], -1)
+        acc = _mma(acc, prods, down)
+    return acc
+
+
+def _norm32(rows):
+    """A row's norm as csrc/scan_wide.cuh bounds it: the float32 sum of
+    squares, one fused multiply-add a tap, its square root, + 2^-71 (part
+    (6)); 0 for a zero row."""
+    acc = torch.zeros(rows.shape[0], dtype=torch.float32)
+    for j in range(rows.shape[1]):
+        acc = (acc.double() + rows[:, j].double() ** 2).float()
+    return torch.where((rows == 0).all(1), 0.0, acc.sqrt() + 2.0 ** -71)
+
+
+def _hurtful(kind, N, seed, M=32, D=96):
+    """Seeded float32 ranges (M, N) and bank rows (D, N): "dynamic", taps
+    spread over 2^-20..2^20; "cancel", each row orthogonal to one range
+    (the numerator cancels to its rounding); "tiny", rows of 1e-30 beside
+    rows of 1e3; "underflow", ranges of 1e-23..1e-21 (num^2 w falls into
+    the subnormals or to 0, and the sums of squares of the ranges too)."""
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((M, N))
+    b = rng.standard_normal((D, N))
+    if kind == "dynamic":
+        r *= 2.0 ** rng.uniform(-20, 20, (M, N))
+        b *= 2.0 ** rng.uniform(-20, 20, (D, N))
+    elif kind == "cancel":
+        own = r[np.arange(D) % M]
+        b -= (np.sum(own * b, 1) / np.sum(own * own, 1))[:, None] * own
+    elif kind == "tiny":
+        r[::3] *= 1e-30
+        r[1::3] *= 1e3
+        b[::2] *= 1e-30
+        b[1::4] *= 1e3
+    else:
+        r *= 10.0 ** rng.uniform(-23, -21, (M, 1))
+    return torch.from_numpy(r.astype(np.float32)), torch.from_numpy(b.astype(np.float32))
+
+
+_WIDE_KINDS = ["dynamic", "cancel", "tiny", "underflow"]
+_emulated = {}
+
+
+def _wide_case(kind, N):
+    """(r, b, plain, screened) for _hurtful(kind, N): the plain version's
+    float32 numerators (kernels._fill_nums) and the emulated screen's, each
+    (2, M, D) for num_o and num_m (the reversed ranges, A's rows 8-15), the
+    screen's for both chunk orders (a list of two)."""
+    if (kind, N) not in _emulated:
+        r, b = _hurtful(kind, N, 1000 + N + 7 * _WIDE_KINDS.index(kind))
+        no = torch.empty((r.shape[0], b.shape[0]))
+        nm, tmp = torch.empty_like(no), torch.empty_like(no)
+        kernels._fill_nums(r, b.T.contiguous(), no, nm, tmp)
+        rows = torch.cat([r, r.flip(1)])
+        screened = [_screened_numerators(rows, b, down).view(2, *no.shape)
+                    for down in (False, True)]
+        _emulated[kind, N] = (r, b, torch.stack([no, nm]), screened)
+    return _emulated[kind, N]
+
+
+@pytest.mark.parametrize("kind", _WIDE_KINDS)
+@pytest.mark.parametrize("N", [17, 25, 33, 64, 100, 129, 255])
+def test_wide_screen_error_is_under_the_headers_margin(kind, N):
+    """The emulated screen's numerators (_screened_numerators: the
+    worst-case MMA of _mma, both orientations, chunks summed in both
+    orders) against the plain version's float32 numerators
+    (kernels._fill_nums): apart by at most _wide_margin(N) Rn Bn + 2^-112,
+    the norms bounded in float32 as the kernel does (_norm32), as
+    csrc/scan_wide.cuh proves in parts (1)-(6)."""
+    r, b, plain, screened = _wide_case(kind, N)
+    bound = (_wide_margin(N) * _norm32(r).double()[:, None] * _norm32(b).double()[None]
+             + 2.0 ** -112)
+    for got in screened:
+        assert ((got.double() - plain.double()).abs() <= bound).all(), (N, kind)
+
+
+def _domain_terms(kind, N, b, plain, objective):
+    """Seeded per-domain w (log-uniform over 1e-3..1e6) and, damped, the
+    callers' t = c denom with w = 1 / (denom + 1e-12), denom put so that
+    t falls among the pairs' |num| (both branches, and pairs on either
+    side of t); c = 16."""
+    rng = np.random.default_rng(N + 11 * _WIDE_KINDS.index(kind))
+    D = b.shape[0]
+    if objective != "damped":
+        return torch.from_numpy(10.0 ** rng.uniform(-3, 6, D)).float(), None, 16.0
+    mag = plain.abs().amax(0).double().median(0).values.clamp(min=1e-30)
+    denom = (mag * torch.from_numpy(rng.uniform(0.3, 3.0, D)) / 16.0).float()
+    return (1.0 / (denom.double() + 1e-12)).float(), (16.0 * denom).float(), 16.0
+
+
+def _score_margin(N, r, b, w, t, c, a):
+    """A pair's margin as csrc/scan_wide.cuh makes it, in float64 (parts
+    (5)-(7)): balanced and affine f Rn + A in the square root of the score;
+    damped, for the screened |num| a, the score's steepest slope within d =
+    wide_margin(N) Rn Bn of a (clip_margin) times d, + A."""
+    rn, bn = _norm32(r).double()[:, None], _norm32(b).double()[None]
+    w64 = w.double()[None]
+    if t is None:
+        f = _wide_margin(N) * w64.clamp(min=0).sqrt() * bn
+        return f * rn + 2.0 ** -74 * (w64.clamp(min=0) + 1).sqrt()
+    t64, a = t.double()[None], a.double()
+    d = _wide_margin(N) * bn * rn
+    slope = torch.maximum(torch.where(a + d > t64, 2.0 * c, 0.0),
+                          torch.where(a - d <= t64, 2 * w64.abs() * (a + d), 0.0))
+    lip = 2 * torch.maximum(torch.tensor(c, dtype=torch.float64), t64 * w64.abs())
+    ctd, ttw = c * t64, t64 * t64 * w64
+    jump = (ctd - ttw).abs() + 2.0 ** -50 * (ctd + ttw.abs())
+    return slope * d + 2.0 ** -111 * lip + 2.0 ** -147 * (w64.abs() + 2) + 2 * jump
+
+
+@pytest.mark.parametrize("objective", ["balanced", "damped"])
+@pytest.mark.parametrize("kind", _WIDE_KINDS)
+@pytest.mark.parametrize("N", [17, 64, 129, 255])
+def test_wide_screen_scores_are_within_the_margin(objective, kind, N):
+    """What the margin must hold: the screened value of a pair, from the
+    emulated numerators and in float32 as csrc/scan_wide.cuh wide_screen
+    computes it, within its margin (_score_margin) of the plain version's
+    float32 score (K3's, and K1's fold of the orientations' gains), on
+    every kind of _hurtful input, the subnormal scores of "underflow"
+    included."""
+    r, b, plain, screened = _wide_case(kind, N)
+    w, t, c = _domain_terms(kind, N, b, plain, objective)
+    no, nm = plain
+    if t is None:
+        want = torch.maximum(no * no * w, nm * nm * w).double().sqrt()
+    else:
+        gain = lambda a: torch.where(a > t, (2 * a - t) * c, a * a * w)  # noqa: E731
+        k3 = gain(torch.maximum(no.abs(), nm.abs())).double()
+        k1 = torch.maximum(gain(no.abs()), gain(nm.abs())).double()
+    for got in screened:
+        x = torch.maximum(got[0].abs(), got[1].abs())
+        bound = _score_margin(N, r, b, w, t, c, x)
+        if t is None:
+            errs = [(x * w.sqrt()).double() - want]
+        else:
+            clip = (2 * c * x.double() - (c * t).double()).float()  # fmaf(c2, x, -c t)
+            screen = torch.where(x > t, clip, x * x * w).double()
+            errs = [screen - k3, screen - k1]
+        for err in errs:
+            assert (err.abs() <= bound).all(), (N, kind, objective)
