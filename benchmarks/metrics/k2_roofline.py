@@ -1,0 +1,7 @@
+"""K2's share of its roofline over the traced requests (%): the least
+time the calls need by roofline/k2.py over the time its kernels took
+in the trace."""
+
+
+def read(run):
+    return run.roofline("k2")

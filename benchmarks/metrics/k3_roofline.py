@@ -1,0 +1,7 @@
+"""K3's share of its roofline over the traced requests (%): the least
+time the calls need by roofline/k3.py over the time its kernels took
+in the trace."""
+
+
+def read(run):
+    return run.roofline("k3")
