@@ -232,11 +232,12 @@ WIDE = {
 # round-trip SNR). From scripts/derive_topk_constants.py;
 # tests/test_torch_topk.py re-derives them (marked slow).
 TOPK = {"seconds": 10.0, "n_ranges": 110250, "sentinels": 8265, "snr_db": 6.627}
-#: The phase table's keys per path (fwav_tpu_torch/utils/trace.py): the JAX
-#: package's keys after the same call, which tests/test_torch_trace.py
-#: derives on the CPU (the card has no JAX). "vad" joins the single-shot
-#: table only where the host VAD runs (fast_mode=False; an all-sentinel
-#: file), the global_* keys the stream's only with the damped pass.
+#: The JAX package's phase keys per path (fwav_tpu_torch/utils/trace.py)
+#: after the same call, which tests/test_torch_trace.py derives on the CPU
+#: (the card has no JAX). "vad" joins the single-shot table only where the
+#: host VAD runs (fast_mode=False; an all-sentinel file), the global_* keys
+#: the stream's only with the damped pass. The port's table holds these
+#: and PORT_KEYS' (port_keys).
 _SINGLE_KEYS = ["d2h", "device", "host_bank", "refit"]
 _STREAM_KEYS = ["dispatch", "fetch_wait", "host_refit", "vad"]
 TRACE_KEYS = {
@@ -249,6 +250,19 @@ TRACE_KEYS = {
     "stream_damped": sorted(_STREAM_KEYS + ["global_dispatch", "global_fetch",
                                             "global_h2d", "global_pass"]),
 }
+#: The phases the port names beyond the JAX package's, per path of
+#: TRACE_KEYS: the signal's preparation (`prep`) on every path, and the
+#: stream's host glue, each shard's and the pass's input build and the
+#: pass's refit of its winners.
+PORT_KEYS = {"default": ["prep"], "damped": ["prep"], "fast_mode_false": ["prep"],
+             "all_sentinel": ["prep"], "packed": ["prep"],
+             "stream_balanced": ["prep", "shard_prep"],
+             "stream_damped": ["global_refit", "prep", "shard_prep"]}
+
+
+def port_keys(path: str) -> list:
+    """The port's phase keys after a call on `path`, sorted."""
+    return sorted(TRACE_KEYS[path] + PORT_KEYS[path])
 #: A segment decoded by the loop at its default stop test against the slice
 #: of the full decode, relative to the signal's peak: the stop test's delta
 #: is over the chunk that is decoded, so the two may stop an iteration apart.
@@ -1497,7 +1511,7 @@ def stream_damped_decode(port, tmp, name, sig, res, device="cuda"):
 def stream_profile(port, sig, **kw):
     """One 100 s streaming encode under torch.profiler: its result, and the
     card's busy time beside the profiled run's host-clock seconds. The
-    kernels launched through ctypes are not attributed to the `stream.*`
+    kernels launched through ctypes are not attributed to the `phase.*`
     ranges, so a phase's busy time is taken as the difference of two
     encodes."""
     res, device_ms, wall, events, _, lost = busy_ms(
@@ -1773,11 +1787,11 @@ def packed_signals(seconds, count, seed0=0):
     return out
 
 
-#: Prefixes of the port's profiler ranges (record_function): the stream's
-#: programs and the phases of fwav_tpu_torch/utils/trace.py. A range also
-#: shows on the card's side of a trace as an annotation over the kernels
-#: it encloses, so it is no work of its own.
-USER_RANGES = ("stream.", "phase.")
+#: Prefixes of the port's profiler ranges (record_function): the phases of
+#: fwav_tpu_torch/utils/trace.py. A range also shows on the card's side of
+#: a trace as an annotation over the kernels it encloses, so it is no work
+#: of its own.
+USER_RANGES = ("phase.",)
 
 
 #: Host calls that put the card's work in a trace: kernel launches, copies
@@ -3007,8 +3021,8 @@ def trace_phase(port, kernels, smi, sig, stream_sig):
             port.compress_audio_arrays(sig, 44100, 2, device="cuda", **kw)
             wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        if sorted(ph) != TRACE_KEYS[name]:
-            raise AssertionError(f"trace {name}: keys {sorted(ph)}, not {TRACE_KEYS[name]}")
+        if sorted(ph) != port_keys(name):
+            raise AssertionError(f"trace {name}: keys {sorted(ph)}, not {port_keys(name)}")
         if not (ph["device"] >= ph["d2h"] >= ph["host_bank"] > 0
                 and ph["device"] + ph["refit"] <= wall):
             raise AssertionError(f"trace {name}: the phases do not nest: {ph}, wall {wall}")
@@ -3038,7 +3052,7 @@ def trace_phase(port, kernels, smi, sig, stream_sig):
             port.compress_audio_packed(stack, 44100, 2, device="cuda")
     finally:
         enc.collect_idx_matches = orig
-    if sorted(ph) != TRACE_KEYS["packed"]:
+    if sorted(ph) != port_keys("packed"):
         raise AssertionError(f"trace packed: keys {sorted(ph)}")
     if len(refits) != PACK_FILES or not ph["refit"] >= sum(refits) > 0:
         raise AssertionError(f"trace packed: refit {ph['refit']} over {len(refits)} files "
@@ -3054,8 +3068,8 @@ def trace_phase(port, kernels, smi, sig, stream_sig):
         with collect_phases() as ph:
             port.compress_audio_streaming(stream_sig, 44100, 2, device="cuda", stats=stats,
                                           **kw)
-        if sorted(ph) != TRACE_KEYS[name]:
-            raise AssertionError(f"trace {name}: keys {sorted(ph)}, not {TRACE_KEYS[name]}")
+        if sorted(ph) != port_keys(name):
+            raise AssertionError(f"trace {name}: keys {sorted(ph)}, not {port_keys(name)}")
         shards = stats["shards"]
 
         def total(key, shards=shards):
@@ -3068,9 +3082,10 @@ def trace_phase(port, kernels, smi, sig, stream_sig):
             gp = stats["global_pass"]
             want.update(global_h2d=gp["h2d_ms"] / 1e3, global_dispatch=gp["enqueue_ms"] / 1e3,
                         global_fetch=gp["wait_ms"] / 1e3,
-                        global_pass=(gp["h2d_ms"] + gp["enqueue_ms"] + gp["wait_ms"]) / 1e3)
+                        global_pass=(gp["h2d_ms"] + gp["enqueue_ms"] + gp["wait_ms"]) / 1e3,
+                        global_refit=gp["refit_ms"] / 1e3)
         bad = {k: (ph[k], v) for k, v in want.items() if abs(ph[k] - v) > 1e-9 * max(v, 1e-3)}
-        if set(want) != set(ph) or bad:
+        if set(want) != set(ph) - {"prep", "shard_prep"} or bad:
             raise AssertionError(f"trace {name}: phases differ from stats: {bad}")
         report[name] = {"shards": len(shards), "phases_ms": _phase_ms(ph)}
 

@@ -108,6 +108,7 @@ import zlib
 
 import numpy as np
 
+from ..utils.trace import phase
 from .container import MAGIC, MATCH_DTYPE, _HEADER, matches_to_struct
 
 COMPACT_VERSION = 2
@@ -596,10 +597,11 @@ def save_compressed_compact(
         tile_size, domain_step, energy_threshold, original_len,
         decode_damping=decode_damping,
     )
-    with open(filepath, "wb") as f:
+    with phase("write"), open(filepath, "wb") as f:
         f.write(blob)
 
 
+@phase("container")
 def compact_bytes(
     matches,
     domains_array,
@@ -616,7 +618,10 @@ def compact_bytes(
     container blob (header + SHA-256 + ext + payload). save_compressed_compact
     writes exactly these bytes; the v3 multichannel container (io.multich)
     embeds one such blob per stored channel. decode_damping != None stores
-    the FLAG_DECODE_HINT byte (see the flag comment)."""
+    the FLAG_DECODE_HINT byte (see the flag comment). Runs under the
+    phase `container` (utils/trace.py), the entropy variant under
+    `container_entropy` and the legacy deflate pricing under
+    `container_deflate`."""
     rec = matches_to_struct(matches)
     domains = np.ascontiguousarray(np.asarray(domains_array, dtype=np.float32))
     n_ranges = len(rec)
@@ -667,10 +672,11 @@ def compact_bytes(
     # quantization): usually the winner, but degenerate content (tiny
     # files, incompressible selections) keeps the legacy bytes
     bank_planes = _byteplane(bank_b)
-    ent = _entropy_variant(
-        rec, live, n_live, idx, o16, bank_q, bank_planes, live_b, sym_b,
-        o_exp, bank_exp, idx_bits, range_size, n_domains, idx_plain,
-    )
+    with phase("container_entropy"):
+        ent = _entropy_variant(
+            rec, live, n_live, idx, o16, bank_q, bank_planes, live_b, sym_b,
+            o_exp, bank_exp, idx_bits, range_size, n_domains, idx_plain,
+        )
     if ent is not None:
         zraw_len, e_ext2, e_payload = ent
         if len(e_ext2) + len(e_payload) < len(raw):
@@ -686,24 +692,25 @@ def compact_bytes(
     # level-6 gain over level 1 on these streams is ~1.5% (hour-scale
     # payloads always stayed at level 1, docstring above), so a >5% gap is
     # unreachable and the expensive compress is skipped, usually entirely.
-    probe = 4 << 20
-    idx_delta = _pack_bits(_idx_delta_encode(idx), idx_bits + 1)
-    if len(zlib.compress(idx_delta[:probe], 1)) < len(
-        zlib.compress(idx_plain[:probe], 1)
-    ):
-        dflags, idx_stream = FLAG_DEFLATE | FLAG_IDX_DELTA, idx_delta
-    else:
-        dflags, idx_stream = FLAG_DEFLATE, idx_plain
-    planes = (
-        bank_planes + live_b + sym_b + idx_stream
-        + _byteplane(s_b) + _byteplane(o_b)
-    )
-    best = len(ext2) + len(payload)
-    z = zlib.compress(planes, 1)
-    if len(planes) <= (64 << 20) and len(z) < best * 1.05:
-        z6 = zlib.compress(planes, 6)
-        if len(z6) < len(z):
-            z = z6
+    with phase("container_deflate"):
+        probe = 4 << 20
+        idx_delta = _pack_bits(_idx_delta_encode(idx), idx_bits + 1)
+        if len(zlib.compress(idx_delta[:probe], 1)) < len(
+            zlib.compress(idx_plain[:probe], 1)
+        ):
+            dflags, idx_stream = FLAG_DEFLATE | FLAG_IDX_DELTA, idx_delta
+        else:
+            dflags, idx_stream = FLAG_DEFLATE, idx_plain
+        planes = (
+            bank_planes + live_b + sym_b + idx_stream
+            + _byteplane(s_b) + _byteplane(o_b)
+        )
+        best = len(ext2) + len(payload)
+        z = zlib.compress(planes, 1)
+        if len(planes) <= (64 << 20) and len(z) < best * 1.05:
+            z6 = zlib.compress(planes, 6)
+            if len(z6) < len(z):
+                z = z6
     if len(z) < best:
         flags, ext2, payload, raw_len = dflags, b"", z, len(planes)
 

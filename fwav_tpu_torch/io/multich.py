@@ -42,6 +42,7 @@ import struct
 
 import numpy as np
 
+from ..utils.trace import phase
 from .compact import compact_bytes, parse_compact_bytes, parse_decode_hint
 from .container import MAGIC
 
@@ -91,7 +92,7 @@ def save_compressed_multi(filepath, channel_tuples, transform=TRANSFORM_DIRECT,
         raise ValueError(f"Unknown channel transform: {transform}")
     blobs = [compact_bytes(*t, decode_damping=decode_damping)
              for t in channel_tuples]
-    with open(filepath, "wb") as f:
+    with phase("write"), open(filepath, "wb") as f:
         f.write(MAGIC + struct.pack("<B", MULTI_VERSION))
         f.write(_OUTER.pack(n_ch, transform, 0))
         for blob in blobs:

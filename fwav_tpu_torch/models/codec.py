@@ -16,6 +16,12 @@ a run on the CPU.
 Output paths: a path that ends in .fwav / .wav is the output file;
 anything else is a directory, as in the reference.
 
+A compress runs under the phases of utils/trace.py: `wav_read` (the read
+and the float clip), the encode's own, `prune` (models/encode.py
+prune_bank, models/stream.py _prune_streamed), `container` (the v2/v3
+bytes, io/compact.py compact_bytes; on v1 the whole native save) and
+`write` (the v2/v3 file's open and write).
+
 devices > 1 runs over a (dp = devices // tp, tp) mesh of `device`'s kind
 (parallel/mesh.py make_mesh): the single-shot encode through
 compress_audio_sharded, the streaming encode with every shard over the
@@ -42,6 +48,7 @@ from ..io.container import (
 from ..io.wav import read_wav, read_wav_mono, write_wav
 from ..utils.logging import logger
 from ..utils.metrics import compression_ratio, x_realtime
+from ..utils.trace import phase
 from .decode import decompress_audio, decompress_segment
 from ..parallel.mesh import make_mesh
 from ..parallel.shard import compress_audio_sharded
@@ -51,6 +58,13 @@ from .stream import _prune_streamed, compress_audio_streaming, domain_block_iter
 #: Files longer than this (samples) encode through the streaming encoder
 #: with a bank serialized block by block.
 STREAMING_THRESHOLD = 1 << 22
+
+
+def _save_v1(*args):
+    """The v1 writer (io/container.py save_compressed): native, with no
+    bytes form, so the phase `container` covers the whole save."""
+    with phase("container"):
+        save_compressed(*args)
 
 
 def _mesh(devices, tp, device):
@@ -124,7 +138,8 @@ def process_file_compress(path, outdir=None, tile=1024, energy_thresh=1e-4,
         return {"input": path, "error": f"Unknown channels mode: {channels!r}"}
     if channels != "fold":
         try:
-            ch_data = read_wav(path)[0]
+            with phase("wav_read"):
+                ch_data = read_wav(path)[0]
         except Exception as e:  # noqa: BLE001 — per-file isolation
             logger.exception("Compression failed for %s", path)
             return {"input": path, "error": str(e)}
@@ -140,12 +155,13 @@ def process_file_compress(path, outdir=None, tile=1024, energy_thresh=1e-4,
         _save = functools.partial(save_compressed_compact,
                                   decode_damping=_profile_hint(kwargs))
     else:
-        _save = save_compressed
+        _save = _save_v1
     try:
         start = time.time()
-        signal, framerate, sampwidth = read_wav_mono(path)
-        if sampwidth == 4:
-            signal = np.clip(signal.astype(np.float32), -1.0, 1.0)
+        with phase("wav_read"):
+            signal, framerate, sampwidth = read_wav_mono(path)
+            if sampwidth == 4:
+                signal = np.clip(signal.astype(np.float32), -1.0, 1.0)
         if len(signal) > STREAMING_THRESHOLD:
             (
                 rec, _, n_ranges, range_size, tile_size, domain_step,
@@ -165,12 +181,13 @@ def process_file_compress(path, outdir=None, tile=1024, energy_thresh=1e-4,
                 _save(outpath, rec, bank, range_size, framerate, sampwidth,
                       tile_size, domain_step, energy_threshold, original_len)
             else:
-                save_compressed_streaming(
-                    outpath, rec,
-                    domain_block_iter(signal, tile_size, range_size, domain_step),
-                    n_domains, range_size, framerate, sampwidth, tile_size,
-                    domain_step, energy_threshold, original_len,
-                )
+                with phase("container"):
+                    save_compressed_streaming(
+                        outpath, rec,
+                        domain_block_iter(signal, tile_size, range_size, domain_step),
+                        n_domains, range_size, framerate, sampwidth, tile_size,
+                        domain_step, energy_threshold, original_len,
+                    )
         else:
             mesh = _mesh(devices, tp, device)
             if mesh is not None:
@@ -225,9 +242,10 @@ def _process_file_compress_multi(path, outdir, tile, energy_thresh, search="auto
 
     try:
         start = time.time()
-        ch_data, framerate, sampwidth = read_wav(path)
-        if sampwidth == 4:
-            ch_data = np.clip(ch_data.astype(np.float32), -1.0, 1.0)
+        with phase("wav_read"):
+            ch_data, framerate, sampwidth = read_wav(path)
+            if sampwidth == 4:
+                ch_data = np.clip(ch_data.astype(np.float32), -1.0, 1.0)
         transform = TRANSFORM_DIRECT
         if mid_side:
             if ch_data.shape[1] != 2:
@@ -327,7 +345,7 @@ def process_files_compress_packed(jobs, tile=1024, energy_thresh=1e-4, search="a
         _save = functools.partial(save_compressed_compact,
                                   decode_damping=_profile_hint({"objective": objective}))
     else:
-        _save = save_compressed
+        _save = _save_v1
         prune_bank_ = prune_bank
     try:
         mesh = _mesh(devices, tp, device)
@@ -350,7 +368,8 @@ def process_files_compress_packed(jobs, tile=1024, energy_thresh=1e-4, search="a
         for k in range(s0, min(len(jobs), s0 + slice_files)):
             path = jobs[k][0]
             try:
-                signal, framerate, sampwidth = read_wav_mono(path)
+                with phase("wav_read"):
+                    signal, framerate, sampwidth = read_wav_mono(path)
             except Exception as e:  # noqa: BLE001 — per-file isolation
                 logger.exception("Compression failed for %s", path)
                 results[k] = {"input": path, "error": str(e)}

@@ -778,6 +778,7 @@ def _range_split_factor(cfg: EncoderConfig, range_size: int, db: int, dp: int,
     return dp
 
 
+@phase("prep")
 def _prep_signal(signal: np.ndarray, cfg: EncoderConfig, dp: int = 1, tp: int = 1):
     """Counts and shape buckets (the JAX package's, so both take the same
     search branch), and the padded raw buffer. On a real mesh the bank
@@ -952,6 +953,7 @@ def collect_idx_matches(codes, n_ranges: int, ranges, bank, s_clip: float):
     return rec
 
 
+@phase("prune")
 def prune_bank(rec: np.ndarray, bank: np.ndarray):
     """Drop every bank row no match references and reindex. An all-sentinel
     table keeps one zero row, so the file stays loadable. Returns

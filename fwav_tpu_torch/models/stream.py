@@ -30,17 +30,19 @@ the codes, host refit) and for the pass, and on a CUDA device each
 program's `span_ms`: CUDA events from before its first launch to after its
 last kernel. A span includes the card's idle gaps while the host issues
 launches, so it is not the card's busy time; that comes from a
-torch.profiler trace (the sum of its kernels' durations), in which the
-ranges `stream.shard` and `stream.global_pass` mark each program. The
-trace's phases (utils/trace.py: `vad`, then per shard `dispatch` = H2D +
-enqueue, `fetch_wait` and `host_refit`, and for the pass `global_h2d`,
-`global_dispatch`, `global_fetch` and their sum `global_pass`) are the
-same laps of the same clock, in seconds.
+torch.profiler trace (the sum of its kernels' durations). The trace's
+phases (utils/trace.py: `vad`, then per shard `dispatch` = H2D + enqueue,
+`fetch_wait` and `host_refit`, and for the pass `global_h2d`,
+`global_dispatch`, `global_fetch`, their sum `global_pass`, and
+`global_refit` = the pass's refit) are the same laps of the same clock, in
+seconds. Outside those laps, `prep` times the whole file's preparation
+after the VAD (the silence test, the pads, the transfer dtype) and
+`shard_prep` the host's build of each program's inputs (a shard's window
+and packed VAD bits; the pass's whole file and its shard-local rows).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import hashlib
 import os
@@ -57,7 +59,7 @@ from ..ops.vad import voiced_detection
 from ..parallel.mesh import Mesh, as_mesh, fetch_global
 from ..utils.buckets import bucket, pad_to
 from ..utils.logging import logger
-from ..utils.trace import add_phase
+from ..utils.trace import phase
 from . import encode
 from .program import PROGRAMS
 from .encode import (
@@ -128,14 +130,10 @@ class _Timer:
         self.out[name] = self.out.get(name, 0.0) + (now - self.t) * 1e3
         self.t = now
 
-    @contextlib.contextmanager
     def phase(self, name: str):
-        """The trace's phase `name` (and its profiler range) from the last
-        lap before the block to the last lap inside it."""
-        t0 = self.t
-        with torch.profiler.record_function(f"phase.{name}"):
-            yield
-        add_phase(name, self.t - t0)
+        """The trace's phase `name` from the last lap before the block to
+        the last lap inside it."""
+        return phase(name, clock=lambda: self.t)
 
     def record(self, i: int) -> None:
         if self.events is not None:  # on the stream of `dev`, whichever is current
@@ -194,11 +192,12 @@ def _global_pass(rec, signal, weighted, raw_src, voiced_p, cfg, original_len,
     dc = bucket(-(-d_total // stride), 16)
     db = dc * stride
     nb = bucket(max(L, lb), 4096)
-    raw_p, mask_bytes = _window_inputs(raw_src, voiced_p, 0, L, nb)
-    lrows32 = np.full(lb // n, -1, np.int32)
-    lrows32[:m] = rec["idx"]
-    packed = db < encode.PACK3_MAX_ROWS  # the core's switch, read alike
-    lrows = pack3_np(lrows32) if packed else lrows32
+    with phase("shard_prep"):
+        raw_p, mask_bytes = _window_inputs(raw_src, voiced_p, 0, L, nb)
+        lrows32 = np.full(lb // n, -1, np.int32)
+        lrows32[:m] = rec["idx"]
+        packed = db < encode.PACK3_MAX_ROWS  # the core's switch, read alike
+        lrows = pack3_np(lrows32) if packed else lrows32
 
     times = {"stride": stride, "db": db, "mb": lb // n}
     timer = _Timer(times, dev)
@@ -209,24 +208,23 @@ def _global_pass(rec, signal, weighted, raw_src, voiced_p, cfg, original_len,
             timer.lap("h2d_ms")
         with timer.phase("global_dispatch"):
             timer.record(0)
-            with torch.profiler.record_function("stream.global_pass"):
-                out = encode_core_global(args[0], args[1], (L, 0, m, d_total), args[2], lb,
-                                         db, cfg, stride, cfg.global_topc)
+            out = encode_core_global(args[0], args[1], (L, 0, m, d_total), args[2], lb, db,
+                                     cfg, stride, cfg.global_topc)
             timer.record(1)
             timer.lap("enqueue_ms")
     with DEVICE_LOCK, timer.phase("global_pass"), timer.phase("global_fetch"):
         out = out.cpu().numpy()[:m]
         timer.lap("wait_ms")
-    timer.span()
-    winners = unpack3_np(out) if packed else out
-
-    imp = winners >= 0
-    times["improved"] = int(imp.sum())
-    logger.info("Global-candidate pass: %d/%d ranges improved",
-                int(imp.sum()), int((rec["idx"] >= 0).sum()))
-    if imp.any():
-        _refit_rows(rec, imp, winners[imp], weighted.reshape(-1, n)[imp], signal, cfg)
-    timer.lap("refit_ms")
+    with timer.phase("global_refit"):
+        timer.span()
+        winners = unpack3_np(out) if packed else out
+        imp = winners >= 0
+        times["improved"] = int(imp.sum())
+        logger.info("Global-candidate pass: %d/%d ranges improved",
+                    int(imp.sum()), int((rec["idx"] >= 0).sum()))
+        if imp.any():
+            _refit_rows(rec, imp, winners[imp], weighted.reshape(-1, n)[imp], signal, cfg)
+        timer.lap("refit_ms")
     if stats is not None:
         stats["global_pass"] = times
     return rec
@@ -306,21 +304,24 @@ def compress_audio_streaming(
         timer.lap("vad_ms")
     if stats is not None:
         stats["shards"] = []
-    if float(np.sum(weighted.astype(np.float64) ** 2)) < 1e-8:
-        # all silent: the empty result of the single-shot path
-        return _empty_result(cfg, original_len)
-    pad_len = (n - (original_len % n)) % n
-    if pad_len:
-        # reflect distributes over the signal*mask product, so padding raw
-        # and mask separately reproduces np.pad(weighted, 'reflect') exactly
-        signal_p = np.pad(signal, (0, pad_len), mode="reflect")
-        voiced_p = np.pad(voiced, (0, pad_len), mode="reflect")
-        weighted = np.pad(weighted, (0, pad_len), mode="reflect")
-    else:
-        signal_p, voiced_p = signal, voiced
+    # the whole file's preparation: the silence test, the pads, the
+    # transfer dtype
+    with phase("prep"):
+        if float(np.sum(weighted.astype(np.float64) ** 2)) < 1e-8:
+            # all silent: the empty result of the single-shot path
+            return _empty_result(cfg, original_len)
+        pad_len = (n - (original_len % n)) % n
+        if pad_len:
+            # reflect distributes over the signal*mask product, so padding raw
+            # and mask separately reproduces np.pad(weighted, 'reflect') exactly
+            signal_p = np.pad(signal, (0, pad_len), mode="reflect")
+            voiced_p = np.pad(voiced, (0, pad_len), mode="reflect")
+            weighted = np.pad(weighted, (0, pad_len), mode="reflect")
+        else:
+            signal_p, voiced_p = signal, voiced
+        raw_src, _ = _as_i16_or_f32(signal_p)
     L = len(weighted)
     n_ranges = L // n
-    raw_src, _ = _as_i16_or_f32(signal_p)
 
     shard_samples = max(n, (shard_samples // n) * n)
     bounds = [(a, min(L, a + shard_samples)) for a in range(0, L, shard_samples)]
@@ -392,10 +393,11 @@ def compress_audio_streaming(
                 "index range; lower shard_samples/halo"
             )
         times = {"shard": k}
-        raw_p, mask_bytes = _window_inputs(raw_src, voiced_p, g0, g0 + lenw, nbw)
+        with phase("shard_prep"):
+            raw_p, mask_bytes = _window_inputs(raw_src, voiced_p, g0, g0 + lenw, nbw)
+            meta_np = np.array([lenw, off, m, n_dom_w], dtype=np.int32)
+            _check_counts(cfg, lb, db, [n_dom_w])
         timer = _Timer(times, dev)
-        meta_np = np.array([lenw, off, m, n_dom_w], dtype=np.int32)
-        _check_counts(cfg, lb, db, [n_dom_w])
         with DEVICE_LOCK, timer.phase("dispatch"):
             if captured:
                 prog = PROGRAMS.load(key, dev, (raw_p, mask_bytes, meta_np), shard_program)
@@ -404,15 +406,13 @@ def compress_audio_streaming(
                                    for x in (raw_p, mask_bytes, meta_np))
             timer.lap("h2d_ms")
             timer.record(0)
-            with torch.profiler.record_function("stream.shard"):
-                if captured:
-                    codes = {0: prog.launch()}
-                else:
-                    codes = _mesh_program(
-                        mesh,
-                        lambda d: _front_masked(raw.to(d), mask.to(d), meta.to(d), lb, cfg),
-                        lb, db, cfg,
-                    )
+            if captured:
+                codes = {0: prog.launch()}
+            else:
+                codes = _mesh_program(
+                    mesh, lambda d: _front_masked(raw.to(d), mask.to(d), meta.to(d), lb, cfg),
+                    lb, db, cfg,
+                )
             timer.record(1)
             timer.lap("enqueue_ms")
         with DEVICE_LOCK, timer.phase("fetch_wait"):
@@ -483,6 +483,7 @@ def _refit_rows(rec, live, rows, ranges, signal, cfg):
     rec["err"][live] = err
 
 
+@phase("prune")
 def _prune_streamed(rec, signal, tile_size, range_size, domain_step):
     """The streaming prune (the JAX package's models/codec.py
     _streamed_pruned): the bank rows the records use, rebuilt from the

@@ -1,20 +1,30 @@
 """Phase timing and profiler traces (copied from fwav_tpu/utils/trace.py,
 with torch.profiler in place of the JAX profiler).
 
-Every pipeline stage is timed into a per-thread phase table, under the JAX
-package's names: `device`, `d2h` and `host_bank` around a stack's device
-program, `vad` and `refit` in its host half; `vad`, `dispatch`,
-`fetch_wait`, `host_refit` and, for the damped global pass, `global_pass`,
-`global_h2d`, `global_dispatch` and `global_fetch` in the stream. A phase is
-a host-clock time: on the card `device` is the enqueue of the stack's
+Every pipeline stage is timed into a per-thread phase table. The JAX
+package's names come first: `device`, `d2h` and `host_bank` around a
+stack's device program, `vad` and `refit` in its host half; `vad`,
+`dispatch`, `fetch_wait`, `host_refit` and, for the damped global pass,
+`global_pass`, `global_h2d`, `global_dispatch` and `global_fetch` in the
+stream. The port also names the stages the JAX package leaves unnamed:
+`prep` (the signal's preparation for the device: buckets, padded copy,
+16-bit probe; the stream's also its silence test), the file API's
+`wav_read`, `prune`, `container` (the v2 writer's `container_entropy` and
+`container_deflate` inside it) and `write`, and the stream's `shard_prep`
+and `global_refit`. `PARENT` says how the phases nest. A phase is a
+host-clock time: on the card `device` is the enqueue of the stack's
 kernels plus the wait for its codes, not the card's busy time. The busy
 time is the sum of the kernels' durations in a `torch_profile` trace, in
-which each phase is also a range named `phase.<name>`.
+which each phase is also a range named `phase.<name>`. The range is opened
+only while a profiler records, so that otherwise a phase costs two clock
+reads and a table update.
 
 Usage:
     with collect_phases() as phases:
         compress_audio_arrays(...)   # stages call phase("device"), ...
     print(phases)  # {"device": 0.012, "d2h": 0.009, ...} in seconds
+    # what no phase covers: the call's wall time less
+    # sum(t for name, t in phases.items() if name not in PARENT)
 
     with torch_profile("trace_dir"):  # TensorBoard-compatible trace
         compress_audio_arrays(...)
@@ -30,6 +40,19 @@ import torch
 
 _local = threading.local()
 
+#: The phase that encloses each nested phase, wherever both run; a phase
+#: not named here is outermost. The outermost phases of a call never
+#: overlap, so its wall time less their sum is the time no phase covers.
+PARENT = {
+    "d2h": "device",
+    "host_bank": "d2h",
+    "global_h2d": "global_pass",
+    "global_dispatch": "global_pass",
+    "global_fetch": "global_pass",
+    "container_entropy": "container",
+    "container_deflate": "container",
+}
+
 
 @contextlib.contextmanager
 def collect_phases():
@@ -42,26 +65,25 @@ def collect_phases():
         _local.phases = prev
 
 
-def add_phase(name: str, seconds: float) -> None:
-    """Add a time measured by the caller to `name` in this thread's table;
-    nothing without a collector. For stages whose boundaries another
-    timer reads as well (models/stream.py), so that both read one clock."""
-    sink = getattr(_local, "phases", None)
-    if sink is not None:
-        sink[name] = sink.get(name, 0.0) + seconds
-
-
 @contextlib.contextmanager
-def phase(name: str):
-    """Time a pipeline stage (repeated names add up), inside the profiler
-    range `phase.<name>`. It records nothing when no collector is active
-    in this thread."""
-    t0 = time.perf_counter()
+def phase(name: str, clock=time.perf_counter):
+    """Time a pipeline stage (repeated names add up): `clock()` after the
+    block less `clock()` before it, added to `name` in this thread's
+    table; nothing without a collector. While a profiler records, the
+    block is also the range `phase.<name>`. A stage whose boundaries
+    another timer reads too passes that timer's clock (models/stream.py),
+    so that both read the same instants. Usable as a decorator."""
+    t0 = clock()
     try:
-        with torch.profiler.record_function(f"phase.{name}"):
+        if torch.autograd.profiler._is_profiler_enabled:
+            with torch.profiler.record_function(f"phase.{name}"):
+                yield
+        else:
             yield
     finally:
-        add_phase(name, time.perf_counter() - t0)
+        sink = getattr(_local, "phases", None)
+        if sink is not None:
+            sink[name] = sink.get(name, 0.0) + (clock() - t0)
 
 
 @contextlib.contextmanager
