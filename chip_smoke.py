@@ -701,6 +701,7 @@ def main() -> int:
     staged_refine_checks(port, kernels, enc, dev, stream_sig, checks)
     mesh_kernel_checks(kernels, enc, dev, sig, stream_sig, checks)
     wide_kernel_checks(kernels, dev, checks)
+    bank_kernel_checks(kernels, dev, checks)
     for key, val in checks.items():
         emit({"phase": "kernel", "check": key, "card": smi, **val})
     lap("kernels")
@@ -1058,6 +1059,48 @@ def wide_kernel_checks(kernels, dev, checks):
         if out["idx_diff"] or (scan == "search_scan" and out["max_abs_err"]):
             raise AssertionError(f"{name}: the kernel and its plain version differ: {out}")
         checks[key] = {**out, "N": N}
+
+
+#: The serialized bank's kernel at the default geometry (tile 1024, 4
+#: taps, step 1): a 10 s file and the longest of the 70 s pool.
+BANK_CHECKS = [("bank_10s", 10.0), ("bank_94s", 94.0)]
+
+
+def bank_kernel_checks(kernels, dev, checks):
+    """bank_means against build_domains_host and its plain version (every
+    bit), timed, with its bytes bound (the samples read and the bank
+    written once); beside it the copy of its rows into pinned host memory
+    (CUDA events) and the numpy build it replaces (host clock, median of
+    5)."""
+    import numpy as np
+    import torch
+
+    from bench import make_signal
+    from fwav_tpu_torch.ops.domains import build_domains_host, n_domains_for
+
+    for key, seconds in BANK_CHECKS:
+        sig = make_signal(seconds)
+        L, nd = len(sig), n_domains_for(len(sig), 1024, 1)
+        x = np.zeros((1, -(-L // 4096) * 4096), dtype=np.int16)
+        x[0, :L] = sig
+        args = (torch.from_numpy(x).to(dev), [nd], 1024, 4, 1)
+        got = kernels.bank_means(*args)[0, :nd]
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            want = build_domains_host(sig, 1024, 4, 1)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        plain = kernels.bank_means_ref(*args)[0, :nd]
+        if not (torch.equal(got, plain) and np.array_equal(
+                got.cpu().numpy().view(np.uint32), want.view(np.uint32))):
+            raise AssertionError(f"{key}: bank_means differs from the host build")
+        host = torch.empty((nd, 4), dtype=torch.float32, pin_memory=True)
+        check = {"rows": nd, "shape": [L, nd, 4], "max_abs_err": 0.0,
+                 **bound({"bytes": (2 * L + 16 * nd) / HBM_BYTES_PER_S * 1e3}),
+                 "copy_ms": cuda_ms(lambda: host.copy_(got, non_blocking=True)),
+                 "host_build_ms": statistics.median(walls)}
+        checks[key] = timed(check, lambda: kernels.bank_means(*args),
+                            lambda: kernels.bank_means_ref(*args))
 
 
 def staged_kernel_checks(port, kernels, enc, dev, checks):
@@ -1952,7 +1995,8 @@ def packed_phase(port, kernels, enc, smi):
         if (plan[2] == "staged") != (phase == "packed_staged"):
             raise AssertionError(f"{phase}: the plan is {plan}")
         want = {**dict.fromkeys(launches, 0), scan: stacks, "refine_window": k2,
-                "window_stats": k2, "staged_refine": stacks if plan[2] == "staged" else 0,
+                "window_stats": k2, "bank_means": stacks,
+                "staged_refine": stacks if plan[2] == "staged" else 0,
                 "staged_stats": stacks if plan[2] == "staged" and kernels.staged_uses_table(
                     cfg.range_size, plan[1], enc._coarse_topc(cfg), False) else 0}
         if launches != want:
@@ -2083,7 +2127,8 @@ def wide_phase(port, kernels, smi, sig):
         launches = dict(kernels.LAUNCHES)
         scan = "topc_scan_wide" if kw.get("objective") == "damped" else "search_scan_wide"
         k4 = int(plan[2] == "staged")
-        want = {**dict.fromkeys(launches, 0), scan: 1, "staged_refine": k4, "staged_stats": k4}
+        want = {**dict.fromkeys(launches, 0), scan: 1, "staged_refine": k4, "staged_stats": k4,
+                "bank_means": 1}
         if launches != want:
             raise AssertionError(f"wide {name}: launches {launches}, expected {want}")
         rec, bank, n_ranges, rs, *_, olen = res
@@ -2169,7 +2214,8 @@ KERNEL_KEYS = (("search_scan_wide_kernel", "search_scan_wide"),
                ("refine_window_kernel", "refine_window"),
                ("window_stats_kernel", "window_stats"),
                ("staged_refine_kernel", "staged_refine"),
-               ("staged_stats_kernel", "staged_stats"))
+               ("staged_stats_kernel", "staged_stats"),
+               ("bank_means_kernel", "bank_means"))
 
 
 def traced_kernels(fn):
@@ -2434,8 +2480,10 @@ def multichannel_phase(port, kernels, smi):
         gpu = pipeline("cuda", tmp)
         cpu = pipeline("cpu", tmp)
     enc_res, launches, loaded, hint, recon, snr, stats, size, _ = gpu
+    # the bank is built on the card only where both channels are whole numbers
+    whole = all(np.array_equal(c, np.round(c)) for c in chans)
     if launches != {**dict.fromkeys(launches, 0), "topc_scan": 1, "refine_window": 1,
-                    "window_stats": 1}:
+                    "window_stats": 1, "bank_means": int(whole)}:
         raise AssertionError(f"multichannel: both channels are one stack, launches {launches}")
     if not np.isfinite(recon).all() or recon.shape != stereo.shape:
         raise AssertionError("multichannel: the decode is not finite or has the wrong shape")
@@ -2603,10 +2651,11 @@ def cli_phase(port, kernels, smi, sig, stream_sig, api_files):
         emit({"phase": "cli_process", "card": smi, "seconds": proc,
               "file_equal_to_in_process": True})
 
-        # topk: the compatibility mode, no kernel, held to the JAX CLI's run
+        # topk: the compatibility mode, no search kernel (the 16-bit file's bank is
+        # bank_means'), held to the JAX CLI's run
         launches = call("compress --search topk", ["compress", wav10, d / "t.fwav", "--search",
                                                    "topk"], 10.0)[0]
-        if any(launches.values()):
+        if launches != {**dict.fromkeys(launches, 0), "bank_means": 1}:
             raise AssertionError(f"topk launched kernels: {launches}")
         out["topk"] = launches
         rec = port.load_compressed_arrays(d / "t.fwav")[0]
@@ -2661,7 +2710,7 @@ def cli_phase(port, kernels, smi, sig, stream_sig, api_files):
                                                       "--out", d / "packed"],
                         10.0 * PACK_FILES + 7.0)[0]
         want = {**dict.fromkeys(launches, 0), "search_scan": 2, "refine_window": 2,
-                "window_stats": 2}
+                "window_stats": 2, "bank_means": 2}
         if launches != want:
             raise AssertionError(f"cli packed: launches {launches}, one of each kernel per "
                                  f"stack: {want}")
@@ -2845,7 +2894,8 @@ def mesh_phase(port, kernels, smi, sig, stream_sig, api_files):
             res, case = run(f"10 s {obj} ({dp}, {tp})",
                             lambda: compress_audio_sharded(sig, 44100, 2, mesh=mesh,
                                                            objective=obj),
-                            {scan: cells, "refine_window": cells, "window_stats": cells},
+                            {scan: cells, "refine_window": cells, "window_stats": cells,
+                             "bank_means": 1},
                             single)
             if not same_result(res, singles[obj]):
                 raise AssertionError(f"mesh 10 s {obj} ({dp}, {tp}): the records differ")
@@ -2870,7 +2920,7 @@ def mesh_phase(port, kernels, smi, sig, stream_sig, api_files):
         res, case = run(f"0.5 s exact (1, {tp})",
                         lambda: compress_audio_sharded(clip, 44100, 2, mesh=mesh,
                                                        search="exact"),
-                        {"search_scan": tp},
+                        {"search_scan": tp, "bank_means": 1},
                         lambda: port.compress_audio_arrays(clip, 44100, 2, search="exact",
                                                            device="cuda"))
         if not same_result(res, one):
@@ -2913,7 +2963,7 @@ def mesh_phase(port, kernels, smi, sig, stream_sig, api_files):
     one = port.compress_audio_packed(ten, 44100, 2, device="cuda")
     res, case = run("packed 16 x 10 s over (2, 2)",
                     lambda: port.compress_audio_packed(ten, 44100, 2, mesh=mesh),
-                    {"search_scan": 4, "refine_window": 4, "window_stats": 4},
+                    {"search_scan": 4, "refine_window": 4, "window_stats": 4, "bank_means": 1},
                     lambda: port.compress_audio_packed(ten, 44100, 2, device="cuda"))
     if not all(same_result(a, b) for a, b in zip(res, one)):
         raise AssertionError("mesh packed: a file differs from the single-device stack")
@@ -3102,7 +3152,8 @@ def trace_phase(port, kernels, smi, sig, stream_sig):
     recs, _, lost = device_work(prof, ns, graphs)
     kernel_names = {e.name() for e in recs}
     missing = [f"phase.{k}" for k in TRACE_KEYS["default"] if f"phase.{k}" not in names]
-    for kname in ("search_scan_kernel", "refine_window_kernel", "window_stats_kernel"):
+    for kname in ("search_scan_kernel", "refine_window_kernel", "window_stats_kernel",
+                  "bank_means_kernel"):
         if not any(kname in n for n in kernel_names):
             missing.append(kname)
     if missing:

@@ -7,7 +7,10 @@ ranges with the reflect-padded tail, then the search, then the sentinel
 mask and the 3-byte idx codes. Only the codes leave the device; the host
 half (`_finalize_encode`, `collect_idx_matches`, `prune_bank`), copied
 from the JAX package, refits s, o, err and the orientation against the
-host-built bank.
+serialized bank. That bank is built on the card where the samples are
+whole numbers (`bank_means` on the int16 samples the program holds, its
+rows copied back while the program runs), else on the host
+(`build_domains_host`): the same bits either way (`_bank_builds`).
 
 The search takes the JAX package's kernel path (EncoderConfig.use_pallas
 there): "exact" is K1 over the whole bank; "coarse" with one lobe is K1
@@ -69,6 +72,8 @@ from ..io.container import MATCH_DTYPE
 from ..ops.affine import affine_stats, batched_affine_match, refit_host, row_mean
 from ..ops.domains import box_sums, build_bank, build_domains_host, n_domains_for
 from ..ops.kernels import (
+    BANK_BUILDS,
+    bank_means,
     check_refine_lead,
     pallas_blocks_ok,
     refine_blocks_ok,
@@ -811,6 +816,64 @@ def _prep_signal(signal: np.ndarray, cfg: EncoderConfig, dp: int = 1, tp: int = 
     return raw_p, n_ranges, n_domains, lb, db
 
 
+#: Side streams that copy banks built on a card to the host, one a device.
+_BANK_STREAMS: dict = {}
+
+
+def _host_zero_sign(bank: np.ndarray, signal: np.ndarray, block_len: int) -> np.ndarray:
+    """The one bit of build_domains_host that an integer build lacks: its
+    first mean is -0.0 where the first block's samples are all -0.0 (a
+    float64 sum of -0.0s stays -0.0, and -0.0 - 0.0 is -0.0)."""
+    head = signal[:block_len]
+    if len(bank) and not head.any() and np.signbit(head).all():
+        bank[0, 0] = -0.0
+    return bank
+
+
+def _bank_builds(raw, files, cfg: EncoderConfig, device):
+    """Starts the serialized banks of a stack (files as _encode_stack's)
+    and returns a function that waits for them: one C-contiguous float32
+    (n_domains, range_size) array a file. An int16 stack (every sample a
+    whole number, _as_i16_or_f32) takes `bank_means` on its samples `raw`
+    on `device` (moved there if they are not), enqueued here on the current
+    stream ahead of the program, and each file's rows are copied on a side
+    stream into pinned host memory while the program runs: the bits of
+    build_domains_host, whose float64 sums of whole numbers are exact. A
+    float stack takes build_domains_host, when the function is called.
+    Call under DEVICE_LOCK."""
+    n = cfg.range_size
+    if raw.dtype != torch.int16:
+        BANK_BUILDS["host"] += len(files)
+        return lambda: [build_domains_host(f[0], cfg.tile_size, n, cfg.domain_step)
+                        for f in files]
+    n_domains = [f[3] for f in files]
+    bank = bank_means(raw.to(device), n_domains, cfg.tile_size, n, cfg.domain_step)
+    BANK_BUILDS["device"] += len(files)
+    done = None
+    if bank.device.type == "cuda":
+        side = _BANK_STREAMS.get(bank.device)
+        if side is None:
+            side = _BANK_STREAMS[bank.device] = torch.cuda.Stream(bank.device)
+        side.wait_stream(torch.cuda.current_stream(bank.device))
+        host = [torch.empty((d, n), dtype=torch.float32, pin_memory=True) for d in n_domains]
+        with torch.cuda.stream(side):
+            for b, h in enumerate(host):
+                h.copy_(bank[b, : len(h)], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        bank.record_stream(side)
+    else:
+        host = [bank[b, :d] for b, d in enumerate(n_domains)]
+
+    def wait():
+        if done is not None:
+            done.synchronize()
+        return [_host_zero_sign(h.numpy(), f[0], cfg.tile_size // n)
+                for h, f in zip(host, files)]
+
+    return wait
+
+
 def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
                   by_file: bool = False):
     """One stack of same-bucket files, each (signal, raw_p, n_ranges,
@@ -819,42 +882,45 @@ def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
     the cells (_mesh_program), or with `by_file` its files (_packed_cells);
     on one card, where _captured says so, the program of its _core_key is
     replayed instead (models/program.py), the counts in its `meta`.
-    The host banks are built while the devices run (kernel launches return
-    at once); one copy per cell brings the codes back. The enqueue of the
-    whole program and the copies each hold DEVICE_LOCK. Returns one result
-    per file."""
-    n = cfg.range_size
+    The banks (_bank_builds) are built while the devices run (kernel
+    launches return at once): on the first local device ahead of the
+    program for an int16 stack, on the host for a float one; one copy per
+    cell brings the codes back. The enqueue of the whole program and the
+    copies each hold DEVICE_LOCK. Returns one result per file."""
     raw_np = np.stack([f[1] for f in files])
     n_domains = [f[3] for f in files]
     meta_np = _stack_counts([len(f[0]) for f in files], [f[2] for f in files], n_domains)
     _check_counts(cfg, lb, db, n_domains)
+    dev0 = mesh.first_local_device()
     # the JAX package's phases: "device" from the enqueue to the codes on
     # the host, "d2h" from the end of the enqueue, "host_bank" inside it
     with phase("device"):
         with DEVICE_LOCK:
             if _captured(cfg, lb, db, mesh):
                 # one program per shape key, replayed (models/program.py)
-                dev = mesh.first_local_device()
                 key = _core_key(cfg, raw_np.shape[1], lb, db, "raw",
-                                raw_np.dtype == np.int16, dev, len(files))
-                out = PROGRAMS.load(
-                    key, dev, (raw_np, meta_np),
+                                raw_np.dtype == np.int16, dev0, len(files))
+                run = PROGRAMS.load(
+                    key, dev0, (raw_np, meta_np),
                     lambda raw, meta: _program_raw(raw, meta, lb, db, cfg),
-                ).launch()
+                )
+                banks = _bank_builds(run.inputs[0], files, cfg, dev0)
+                out = run.launch()
                 codes = {0: out if by_file else out.transpose(0, 1)}
             elif by_file:
+                banks = _bank_builds(torch.from_numpy(raw_np), files, cfg, dev0)
                 codes = _packed_cells(raw_np, meta_np, lb, db, cfg, mesh)
             else:  # dp slabs along the range axis, gathered along axis 0
-                raw = torch.from_numpy(raw_np).to(mesh.first_local_device())
+                raw = torch.from_numpy(raw_np).to(dev0)
                 meta = torch.from_numpy(meta_np).to(raw.device)
+                banks = _bank_builds(raw, files, cfg, dev0)
                 codes = _mesh_program(
                     mesh, lambda d: _front_packed(raw.to(d), meta.to(d), lb, cfg),
                     lb, db, cfg)
                 codes = {i: v.transpose(0, 1) for i, v in codes.items()}
         with phase("d2h"):
             with phase("host_bank"):
-                banks = [build_domains_host(f[0], cfg.tile_size, n, cfg.domain_step)
-                         for f in files]
+                banks = banks()
             with DEVICE_LOCK:
                 c = fetch_global(codes, mesh)
     if not by_file:

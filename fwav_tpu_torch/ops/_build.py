@@ -117,6 +117,8 @@ def _bind(lib):
     lib.fwav_staged_refine.argtypes = [
         p, i, i, i, p, q, p, p, i, q, q, q, p, i, i, i, f, p, p, p,
     ]
+    lib.fwav_bank_means.restype = i
+    lib.fwav_bank_means.argtypes = [p, i, q, ctypes.POINTER(i), q, i, i, i, p, p]
     ll = ctypes.POINTER(ctypes.c_longlong)
     lib.fwav_graph_node_kinds.restype = i
     lib.fwav_graph_node_kinds.argtypes = [p, p, ctypes.c_longlong, ll, ll]

@@ -29,12 +29,17 @@ and one kernel with no Pallas counterpart:
   whole-file global pass (each lobe column alone, merged with a strict >)
   and in coarse_refine_search. Its per-row table comes from
   `staged_stats`, a kernel of its own. CUDA source: csrc/staged_refine.cu.
+- `bank_means` replaces the host's numpy build of the serialized bank
+  (ops/domains.py build_domains_host; the JAX package's build_domains_host
+  in fwav_tpu/ops/domains.py) for stacks of integer-valued samples, which
+  reach the card as int16: the same bits, from exact integer block sums.
+  CUDA source: csrc/bank_means.cu.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor takes
 the plain PyTorch version (`search_scan_ref`, `topc_scan_ref`,
 `refine_window_ref`, `window_stats_ref`, `staged_refine_ref`, which runs
-`refine_from_lobes`, defined here, `staged_stats_ref`), a CUDA tensor
-launches the kernel or raises. The plain versions are the spec, and on the
+`refine_from_lobes`, defined here, `staged_stats_ref`, `bank_means_ref`), a
+CUDA tensor launches the kernel or raises. The plain versions are the spec, and on the
 same inputs each kernel agrees with its plain version bit for bit: K2 computes in its
 order of operations; K1 and K3 screen every pair on the tensor cores
 within a proven margin and confirm the pairs that can win in its float32
@@ -72,7 +77,12 @@ _EPS = 1e-12
 #: over 16) count under "search_scan_wide" and "topc_scan_wide".
 LAUNCHES = {"search_scan": 0, "topc_scan": 0, "refine_window": 0, "window_stats": 0,
             "search_scan_wide": 0, "topc_scan_wide": 0, "staged_refine": 0,
-            "staged_stats": 0}
+            "staged_stats": 0, "bank_means": 0}
+#: Serialized banks made since the last reset, one a file, by their source
+#: (models/encode.py _encode_stack): "device", `bank_means` on an int16
+#: stack (the kernel, or on a CPU tensor its plain version); "host",
+#: ops/domains.py build_domains_host on a float stack.
+BANK_BUILDS = {"device": 0, "host": 0}
 
 _OBJECTIVES = {"balanced": 0, "affine": 1, "damped": 2}
 #: Range sizes of K2 and its table (csrc/refine_window.cu). Wider ranges
@@ -105,8 +115,10 @@ _REFINE_VMEM_MEANS_BYTES = 9 << 20
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero LAUNCHES and BANK_BUILDS."""
+    for counts in (LAUNCHES, BANK_BUILDS):
+        for k in counts:
+            counts[k] = 0
 
 
 def pallas_blocks_ok(M: int, D: int, range_block: int, domain_block: int) -> bool:
@@ -1018,3 +1030,90 @@ def staged_refine(ranges, bank, n_valid, lobes, stride: int, objective: str = "b
     _build.check(lib, code, "staged_refine")
     LAUNCHES["staged_refine"] += 1
     return idx, score
+
+
+# --- the serialized bank ----------------------------------------------------
+
+
+def bank_rows(n_domains) -> int:
+    """Rows per file of `bank_means`' output: the most domains of a file,
+    rounded up to a multiple of 4 (at least 4), so that every file's rows
+    start 16-byte aligned."""
+    return max(4, -(-max(int(d) for d in n_domains) // 4) * 4)
+
+
+def _check_bank_args(x, n_domains, tile_size: int, range_size: int, domain_step: int):
+    """The bank's geometry checks; returns (n_domains as ints, block_len)."""
+    if x.dim() != 2 or x.dtype != torch.int16:
+        raise TypeError(f"bank_means: x must be a (B, nb) int16 stack, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    n_domains = [int(d) for d in n_domains]
+    block_len = tile_size // range_size
+    nb = x.shape[1]
+    if len(n_domains) != x.shape[0] or block_len < 1 or domain_step < 1 or any(
+            d < 0 or (d and (d - 1) * domain_step + range_size * block_len > nb)
+            for d in n_domains):
+        raise ValueError(f"bank_means: {n_domains} domains of tile {tile_size}, range "
+                         f"{range_size}, step {domain_step} do not fit {tuple(x.shape)}")
+    return n_domains, block_len
+
+
+def bank_means_ref(x, n_domains, tile_size: int, range_size: int, domain_step: int,
+                   block_rows: int = 1 << 16):
+    """Plain PyTorch version of `bank_means`, blocked over rows: per block
+    of rows the int64 prefix sums of the samples it reads, each block sum
+    their exact difference, times the float64 1 / block_len, rounded to
+    float32. Rows from n_domains[b] on are zero."""
+    n_domains, block_len = _check_bank_args(x, n_domains, tile_size, range_size, domain_step)
+    inv = 1.0 / block_len
+    out = torch.zeros((x.shape[0], bank_rows(n_domains), range_size), dtype=torch.float32,
+                      device=x.device)
+    for b, nd in enumerate(n_domains):
+        for r0 in range(0, nd, block_rows):
+            r1 = min(nd, r0 + block_rows)
+            lo = r0 * domain_step
+            hi = (r1 - 1) * domain_step + range_size * block_len
+            cs = torch.zeros(hi - lo + 1, dtype=torch.int64, device=x.device)
+            torch.cumsum(x[b, lo:hi].to(torch.int64), 0, out=cs[1:])
+            span = (r1 - r0) * domain_step
+            for j in range(range_size):
+                a = j * block_len
+                sums = (cs[a + block_len : a + block_len + span : domain_step]
+                        - cs[a : a + span : domain_step])
+                out[b, r0:r1, j] = (sums.to(torch.float64) * inv).to(torch.float32)
+    return out
+
+
+def bank_means(x, n_domains, tile_size: int, range_size: int, domain_step: int = 1):
+    """The serialized bank of a stack of integer-valued files, from their
+    int16 samples: x (B, nb) int16, n_domains one count a file. Returns
+    (B, bank_rows(n_domains), range_size) float32 with bank[b, i, j] the
+    sum of x[b, i*domain_step + j*block_len :][:block_len] (block_len =
+    tile_size // range_size) as an exact integer, times the float64
+    1.0 / block_len, rounded to float32: ops/domains.py
+    build_domains_host's bits on the same samples. Rows from n_domains[b]
+    on are not written. A CPU tensor takes bank_means_ref; a CUDA tensor is
+    one launch a stack (csrc/bank_means.cu), on the current stream."""
+    dev = x.device
+    if dev.type == "cpu":
+        return bank_means_ref(x, n_domains, tile_size, range_size, domain_step)
+    if dev.type != "cuda":
+        raise ValueError(f"bank_means: unsupported device {dev}")
+    n_domains, block_len = _check_bank_args(x, n_domains, tile_size, range_size, domain_step)
+    _cuda_args("bank_means", {"x": x}, [(torch.int16,)], dev)
+    B, nb = x.shape
+    D = bank_rows(n_domains)
+
+    from . import _build
+
+    lib = _build.load()
+    out = torch.empty((B, D, range_size), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.fwav_bank_means(
+            _ptr(x), B, nb, (ctypes.c_int * B)(*n_domains), D, range_size, block_len,
+            int(domain_step), _ptr(out), ctypes.c_void_p(stream),
+        )
+    _build.check(lib, code, "bank_means")
+    LAUNCHES["bank_means"] += 1
+    return out

@@ -35,6 +35,10 @@ NO_WIDE = {"search_scan_wide": 0, "topc_scan_wide": 0}
 #: K4, the staged refine, and its table, which the window-refine paths
 #: never launch.
 NO_K4 = {"staged_refine": 0, "staged_stats": 0}
+#: The serialized bank's kernel: one launch an encode of whole-valued
+#: samples (every bench.make_signal file), none in the stream.
+BANK = {"bank_means": 1}
+NO_BANK = {"bank_means": 0}
 
 
 @pytest.fixture
@@ -207,7 +211,7 @@ def test_slice_on_the_card_matches_the_host():
     kernels.reset_launch_counts()
     gpu = port.compress_audio_arrays(sig, 44100, 2, device="cuda")
     assert kernels.LAUNCHES == {"search_scan": 1, "topc_scan": 0, "refine_window": 1,
-                                "window_stats": 1, **NO_WIDE, **NO_K4}
+                                "window_stats": 1, **NO_WIDE, **NO_K4, **BANK}
     cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
 
@@ -290,7 +294,7 @@ def test_damped_slice_on_the_card_matches_the_host():
     kernels.reset_launch_counts()
     gpu = port.compress_audio_arrays(sig, 44100, 2, objective="damped", device="cuda")
     assert kernels.LAUNCHES == {"search_scan": 0, "topc_scan": 1, "refine_window": 1,
-                                "window_stats": 1, **NO_WIDE, **NO_K4}
+                                "window_stats": 1, **NO_WIDE, **NO_K4, **BANK}
     cpu = port.compress_audio_arrays(sig, 44100, 2, objective="damped", device="cpu")
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
 
@@ -342,10 +346,10 @@ def test_stream_on_the_card_matches_the_host(dev, objective):
     if objective == "damped":
         assert launches == {"search_scan": 0, "topc_scan": 6, "refine_window": 5,
                             "window_stats": 5, **NO_WIDE, "staged_refine": 1,
-                            "staged_stats": 0}  # the pass's descent: no table
+                            "staged_stats": 0, **NO_BANK}  # the pass's descent: no table
     else:
         assert launches == {"search_scan": 5, "topc_scan": 0, "refine_window": 5,
-                            "window_stats": 5, **NO_WIDE, **NO_K4}
+                            "window_stats": 5, **NO_WIDE, **NO_K4, **NO_BANK}
     np.testing.assert_array_equal(gpu[0]["idx"] < 0, cpu[0]["idx"] < 0)
     assert int((gpu[0]["idx"] != cpu[0]["idx"]).sum()) <= 2 * -(-len(cpu[0]) // 1024)
 
@@ -536,14 +540,15 @@ def test_cli_round_trip_on_the_card_equals_the_host(dev, tmp_path, flags):
 
 def test_topk_on_the_card_matches_the_host(dev):
     """search="topk" on the card (torch ops, TF32 off for the shortlist
-    products; no kernel launched) against the host run of one second of
-    audio: the same sentinels, idx equal but at ties of the selection."""
+    products; no search kernel launched) against the host run of one second of
+    audio: the same sentinels, idx equal but at ties of the selection. Its
+    bank, as every encode's of whole-valued samples, is bank_means'."""
     from fwav_tpu_torch.ops import near_tie
 
     sig = bench.make_signal(1.0)
     kernels.reset_launch_counts()
     gpu = port.compress_audio_arrays(sig, 44100, 2, search="topk", device="cuda")[0]
-    assert not any(kernels.LAUNCHES.values())
+    assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), **BANK}
     cpu = port.compress_audio_arrays(sig, 44100, 2, search="topk", device="cpu")[0]
     np.testing.assert_array_equal(gpu["idx"] < 0, cpu["idx"] < 0)
     assert int((gpu["idx"] != cpu["idx"]).sum()) <= near_tie.allowed_diffs(len(cpu))
@@ -557,20 +562,21 @@ def test_topk_on_the_card_matches_the_host(dev):
 
 @pytest.mark.parametrize("seconds,kw,launches", [
     (2.0, {}, {"search_scan": 4, "topc_scan": 0, "refine_window": 4, "window_stats": 4,
-               **NO_WIDE, **NO_K4}),
+               **NO_WIDE, **NO_K4, **BANK}),
     (2.0, {"objective": "damped"},
      {"search_scan": 0, "topc_scan": 4, "refine_window": 4, "window_stats": 4,
-      **NO_WIDE, **NO_K4}),
+      **NO_WIDE, **NO_K4, **BANK}),
     (0.5, {"search": "exact"},
      {"search_scan": 4, "topc_scan": 0, "refine_window": 0, "window_stats": 0,
-      **NO_WIDE, **NO_K4}),
+      **NO_WIDE, **NO_K4, **BANK}),
 ])
 def test_repeated_card_mesh_matches_one_device(dev, seconds, kw, launches):
     """A (2, 2) mesh of four cells on cuda:0 (parallel/mesh.py) gives the
     records of the single-device encode on the card, coarse (one lobe and
     damped: the cells split the ranges, each runs K1 or K3 and K2 with its
     table once) and exact (each cell runs K1 once over its bank row
-    shard)."""
+    shard); the serialized bank is one bank_means launch on the first
+    cell."""
     from fwav_tpu_torch.parallel import Mesh, compress_audio_sharded
 
     sig = bench.make_signal(seconds)
@@ -818,7 +824,7 @@ def test_wide_tile_encode_on_the_card_matches_the_host(dev, kw):
     scan = "topc_scan_wide" if kw.get("objective") == "damped" else "search_scan_wide"
     k4 = int(kw.get("search") == "coarse")
     assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), scan: 1,
-                                "staged_refine": k4, "staged_stats": k4}
+                                "staged_refine": k4, "staged_stats": k4, **BANK}
     cpu = port.compress_audio_arrays(sig, 44100, 2, device="cpu", **kw)
     np.testing.assert_array_equal(gpu[0].view(np.uint8), cpu[0].view(np.uint8))
 
@@ -1151,3 +1157,91 @@ def test_staged_encodes_launch_k4_once(dev):
         kernels.refine_from_lobes = real
     assert kernels.LAUNCHES["staged_refine"] == 1 and not kernels.LAUNCHES["staged_stats"]
     assert not calls
+
+
+# --- the serialized bank (csrc/bank_means.cu) --------------------------------
+
+
+def _bank_stack(lens, seed):
+    """A zero-padded int16 stack of files of the given lengths: seeded
+    full-range samples with an all-zero run and runs at +-32767."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((len(lens), -(-max(lens) // 4096) * 4096), dtype=np.int16)
+    for b, L in enumerate(lens):
+        x[b, :L] = rng.integers(-32767, 32768, L)
+        x[b, 1000:5000] = 0
+        x[b, 9000:9600] = 32767
+        x[b, 12000:12300] = -32767
+    return x
+
+
+@pytest.mark.parametrize("tile,step", [(1024, 1), (1500, 1), (4352, 4), (8192, 8),
+                                       (1024, 3), (256, 1), (65280, 63)])
+def test_bank_means_kernel_equals_the_host_build(dev, tile, step):
+    """One launch over a stack of three files of different domain counts
+    gives each file's build_domains_host bits and its plain version's:
+    block lengths 64-300, steps 1-63, and at tile 65280 (255 columns of 256
+    samples) the columns in passes."""
+    from fwav_tpu_torch.ops.domains import build_domains_host, n_domains_for
+
+    n = max(4, tile // 256)
+    lens = [300000, 250001, 123457]
+    x = _bank_stack(lens, tile + step)
+    n_dom = [n_domains_for(L, tile, step) for L in lens]
+    before = kernels.LAUNCHES["bank_means"]
+    got = kernels.bank_means(torch.from_numpy(x).to(dev), n_dom, tile, n, step)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bank_means"] == before + 1
+    plain = kernels.bank_means_ref(torch.from_numpy(x), n_dom, tile, n, step)
+    for b, L in enumerate(lens):
+        card = got[b, : n_dom[b]].cpu()
+        assert torch.equal(card, plain[b, : n_dom[b]])
+        want = build_domains_host(x[b, :L].astype(np.float32), tile, n, step)
+        np.testing.assert_array_equal(card.numpy().view(np.uint32), want.view(np.uint32))
+
+
+def test_bank_means_kernel_on_a_94s_file(dev):
+    """The longest file of the benchmark's 70 s pool (94 s, 4,145,400
+    samples, 4,144,377 rows of the default tile): the host build's bits."""
+    from fwav_tpu_torch.ops.domains import build_domains_host, n_domains_for
+
+    sig = bench.make_signal(94.0)
+    x = np.zeros((1, -(-len(sig) // 4096) * 4096), dtype=np.int16)
+    x[0, : len(sig)] = sig
+    nd = n_domains_for(len(sig), 1024, 1)
+    got = kernels.bank_means(torch.from_numpy(x).to(dev), [nd], 1024, 4, 1)[0, :nd]
+    want = build_domains_host(sig, 1024, 4, 1)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want.view(np.uint32))
+
+
+def test_encodes_on_the_card_ship_the_host_bank(dev):
+    """Every encode of whole-valued samples on the card builds its bank with
+    bank_means (one launch a stack) and returns build_domains_host's bits:
+    a packed stack of three lengths, and one file through its key's first
+    call, capture and replay; samples that are no whole numbers keep the
+    host build."""
+    from fwav_tpu_torch.models.program import PROGRAMS
+    from fwav_tpu_torch.ops.domains import build_domains_host
+
+    base = bench.make_signal(3.5)
+    sigs = [base, base[:150000].copy(), base[:140000].copy()]
+    kernels.reset_launch_counts()
+    res = port.compress_audio_packed(sigs, 44100, 2, device="cuda")
+    assert kernels.LAUNCHES["bank_means"] == 1
+    assert kernels.BANK_BUILDS == {"device": 3, "host": 0}
+    for sig, r in zip(sigs, res):
+        np.testing.assert_array_equal(r[1].view(np.uint32),
+                                      build_domains_host(sig, 1024, 4, 1).view(np.uint32))
+    PROGRAMS.clear()
+    want = build_domains_host(sigs[1], 1024, 4, 1)
+    for _ in range(3):  # first call, capture, replay
+        got = port.compress_audio_arrays(sigs[1], 44100, 2, device="cuda")
+        assert got[1].flags.c_contiguous
+        np.testing.assert_array_equal(got[1].view(np.uint32), want.view(np.uint32))
+    st = PROGRAMS.stats()
+    assert (st["first_calls"], st["captures"], st["replays"]) == (1, 1, 1)
+    assert kernels.BANK_BUILDS == {"device": 6, "host": 0}
+    noisy = sigs[1] + np.float32(0.25)
+    got = port.compress_audio_arrays(noisy, 44100, 2, device="cuda")
+    assert kernels.BANK_BUILDS == {"device": 6, "host": 1}
+    np.testing.assert_array_equal(got[1], build_domains_host(noisy, 1024, 4, 1))

@@ -274,6 +274,68 @@ def test_cpu_run_launches_no_kernel(speechlike):
     assert not any(kernels.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("dtype", [np.int16, np.float32])
+def test_integer_samples_build_the_bank_as_the_device_does(monkeypatch, dtype):
+    """An int16 array, and whole-valued float32, reach the program as int16,
+    and their bank comes from bank_means (its plain version here): the
+    records and the bank's bits of the host path, which a float stack
+    takes (_as_i16_or_f32 patched to ship float32)."""
+    sig = bench.make_signal(1.5).astype(dtype)
+    kernels.reset_launch_counts()
+    got = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
+    assert kernels.BANK_BUILDS == {"device": 1, "host": 0}
+    with monkeypatch.context() as m:
+        m.setattr(port_encode, "_as_i16_or_f32", lambda s: (s, False))
+        want = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
+    assert kernels.BANK_BUILDS == {"device": 1, "host": 1}
+    assert not any(kernels.LAUNCHES.values())
+    assert got[1].dtype == np.float32 and got[1].flags.c_contiguous
+    np.testing.assert_array_equal(got[1].view(np.uint32), want[1].view(np.uint32))
+    np.testing.assert_array_equal(got[0].view(np.uint8), want[0].view(np.uint8))
+    assert tuple(got[2:]) == tuple(want[2:])
+
+
+def test_float_samples_build_the_bank_on_the_host(speechlike):
+    """Samples that are no whole numbers keep build_domains_host."""
+    sig, sr, sw = speechlike
+    kernels.reset_launch_counts()
+    res = port.compress_audio_arrays(sig, sr, sw, device="cpu")
+    assert kernels.BANK_BUILDS == {"device": 0, "host": 1}
+    np.testing.assert_array_equal(
+        res[1].view(np.uint32),
+        port_encode.build_domains_host(sig, 1024, 4, 1).view(np.uint32))
+
+
+def test_device_bank_keeps_the_host_sign_of_zero():
+    """A float signal that opens with -0.0 samples: the host build's first
+    mean is -0.0 (its float64 sums keep the sign), which int16 samples
+    cannot carry; the device path gives the same bits."""
+    sig = bench.make_signal(1.5)
+    sig[:600] = -0.0
+    kernels.reset_launch_counts()
+    res = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
+    assert kernels.BANK_BUILDS == {"device": 1, "host": 0}
+    want = port_encode.build_domains_host(sig, 1024, 4, 1)
+    neg_zero = (want == 0) & np.signbit(want)
+    assert neg_zero[0, 0] and neg_zero.sum() == 1
+    np.testing.assert_array_equal(res[1].view(np.uint32), want.view(np.uint32))
+
+
+def test_packed_stack_builds_each_bank_on_the_device():
+    """A packed stack of two int16 files with different domain counts: one
+    bank_means call for the stack, each file's bank its host build."""
+    base = bench.make_signal(1.6)
+    sigs = [base, base[:68000].copy()]
+    kernels.reset_launch_counts()
+    res = port.compress_audio_packed(sigs, 44100, 2, device="cpu")
+    assert kernels.BANK_BUILDS == {"device": 2, "host": 0}
+    assert len({len(r[1]) for r in res}) == 2
+    for sig, r in zip(sigs, res):
+        np.testing.assert_array_equal(
+            r[1].view(np.uint32),
+            port_encode.build_domains_host(sig, 1024, 4, 1).view(np.uint32))
+
+
 def _assert_encode_bar(sig, J, T, cfg, max_diffs):
     """The Encode bar: the same sentinel set; idx equal except at near-ties
     (float64 balanced gains to rtol 1e-5; for damped the float32 window

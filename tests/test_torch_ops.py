@@ -219,6 +219,35 @@ def test_bank_ops_stack_equals_per_file(B):
         assert not bank[b, n_dom[b]:].any()
 
 
+@pytest.mark.parametrize("step", [1, 3])
+@pytest.mark.parametrize("tile", [1024, 1500, 4352, 8192])
+def test_bank_means_ref_equals_host_build(tile, step):
+    """bank_means' plain version on a stack of two int16 files of different
+    lengths (so different domain counts; block 300 at tile 1500, no power
+    of 2), with full-scale and all-zero runs, gives build_domains_host's
+    bits on each file's float32 samples; rows past a file's count stay 0."""
+    from fwav_tpu_torch.ops import kernels
+
+    n = max(4, tile // 256)
+    rng = np.random.default_rng(tile + step)
+    lens = [30000, 21111]
+    x = np.zeros((2, 32768), dtype=np.int16)
+    for b, L in enumerate(lens):
+        x[b, :L] = rng.integers(-32767, 32768, L)
+        x[b, 500:2500] = 0
+        x[b, 4000:4600] = 32767
+        x[b, 7000:7300] = -32767
+    n_dom = [domains.n_domains_for(L, tile, step) for L in lens]
+    assert n_dom[0] != n_dom[1]
+    got = kernels.bank_means(torch.from_numpy(x), n_dom, tile, n, step)
+    assert got.shape == (2, kernels.bank_rows(n_dom), n) and got.dtype == torch.float32
+    for b, L in enumerate(lens):
+        want = domains.build_domains_host(x[b, :L].astype(np.float32), tile, n, step)
+        np.testing.assert_array_equal(got[b, : n_dom[b]].numpy().view(np.uint32),
+                                      want.view(np.uint32))
+        assert not got[b, n_dom[b]:].any()
+
+
 @pytest.mark.parametrize("stats", ["given", "subsampled"])
 @pytest.mark.parametrize("top_c", [1, 4])
 @pytest.mark.parametrize("objective", ["balanced", "damped"])
