@@ -73,6 +73,7 @@ from ..ops.affine import affine_stats, batched_affine_match, refit_host, row_mea
 from ..ops.domains import box_sums, build_bank, build_domains_host, n_domains_for
 from ..ops.kernels import (
     BANK_BUILDS,
+    PACKS,
     bank_means,
     check_refine_lead,
     pallas_blocks_ok,
@@ -1108,7 +1109,9 @@ def compress_audio_packed(
     (_plan_search). The host builds each file's
     bank while the device runs, one copy brings the stack's codes back, and
     each file is finalized as the single-shot encoder does it, so every
-    file's records equal compress_audio_arrays' exactly.
+    file's records equal compress_audio_arrays' exactly. ops/kernels.py
+    PACKS counts the calls, their stacks and files, and the pairs of each
+    stack's scan grid that belong to a file.
 
     Returns a list of compress_audio_arrays-shaped 8-tuples in input
     order; an empty or too-short input gives the empty result in its place.
@@ -1128,6 +1131,8 @@ def compress_audio_packed(
         tile_size=tile_size, energy_thresh=energy_thresh, fast_mode=fast_mode,
         search=search, objective=objective,
     )
+    PACKS["calls"] += 1
+    PACKS["clips"] += len(signals)
     results = [None] * len(signals)
     groups: dict = {}
     prepped: dict = {}
@@ -1147,8 +1152,12 @@ def compress_audio_packed(
     for (_, lb, db, _), idxs in groups.items():
         for c0 in range(0, len(idxs), PACK_B_MAX):
             chunk = idxs[c0 : c0 + PACK_B_MAX]
-            done = _encode_stack([prepped[i] for i in chunk], lb, db, cfg, mesh,
-                                 by_file=True)
+            stack = [prepped[i] for i in chunk]
+            done = _encode_stack(stack, lb, db, cfg, mesh, by_file=True)
+            PACKS["stacks"] += 1
+            PACKS["stack_files"] += len(stack)
+            PACKS["valid_pairs"] += sum(f[2] * f[3] for f in stack)  # ranges x rows
+            PACKS["grid_pairs"] += len(stack) * (lb // cfg.range_size) * db
             for i, res in zip(chunk, done):
                 results[i] = res
     return results

@@ -83,6 +83,15 @@ LAUNCHES = {"search_scan": 0, "topc_scan": 0, "refine_window": 0, "window_stats"
 #: stack (the kernel, or on a CPU tensor its plain version); "host",
 #: ops/domains.py build_domains_host on a float stack.
 BANK_BUILDS = {"device": 0, "host": 0}
+#: The packing of compress_audio_packed since the last reset
+#: (models/encode.py): per call 1 to "calls" and its signals to "clips";
+#: per stack launched 1 to "stacks" and its files to "stack_files"; per
+#: file of a stack n_ranges x n_domains to "valid_pairs" and its bucket's
+#: mb x db to "grid_pairs", so that 1 - valid_pairs / grid_pairs is the
+#: share of an exact scan's grid that is bucket padding. Counted on every
+#: device, outside DEVICE_LOCK: exact for one calling thread.
+PACKS = {"calls": 0, "clips": 0, "stacks": 0, "stack_files": 0, "valid_pairs": 0,
+         "grid_pairs": 0}
 
 _OBJECTIVES = {"balanced": 0, "affine": 1, "damped": 2}
 #: Range sizes of K2 and its table (csrc/refine_window.cu). Wider ranges
@@ -115,8 +124,8 @@ _REFINE_VMEM_MEANS_BYTES = 9 << 20
 
 
 def reset_launch_counts() -> None:
-    """Zero LAUNCHES and BANK_BUILDS."""
-    for counts in (LAUNCHES, BANK_BUILDS):
+    """Zero LAUNCHES, BANK_BUILDS and PACKS."""
+    for counts in (LAUNCHES, BANK_BUILDS, PACKS):
         for k in counts:
             counts[k] = 0
 

@@ -19,6 +19,13 @@ which each phase is also a range named `phase.<name>`. The range is opened
 only while a profiler records, so that otherwise a phase costs two clock
 reads and a table update.
 
+Beside the phases the program keeps counters (fwav_tpu_torch/ops/
+kernels.py): `LAUNCHES`, kernel launches per kernel; `BANK_BUILDS`, banks
+by where they were built; `PACKS`, the packing of compress_audio_packed:
+its calls and clips, its stacks and their files (one `device`, `d2h` and
+`host_bank` a stack, one `prep` and `refit` a file), and the valid and the
+bucketed pairs of each stack's scan grid.
+
 Usage:
     with collect_phases() as phases:
         compress_audio_arrays(...)   # stages call phase("device"), ...

@@ -510,6 +510,38 @@ def test_packed_encode_on_the_card_equals_the_single_encodes(dev, kw, refine):
         assert tuple(got[2:]) == tuple(one[2:])
 
 
+def test_packed_clips_on_the_card_equal_the_single_encodes(dev):
+    """A call shaped like a clip corpus's (16 kHz, 14 clips of 1 s and two
+    of 0.5-1.0 s) takes the exact branch: K1 once per stack and no
+    refine; every clip equals its own single encode on the card exactly."""
+    from fwav_tpu_torch.models import encode as enc
+
+    sig = np.round(bench.make_signal(15.5, 16000)).astype(np.float32)
+    lengths = [16000] * 6 + [9000] + [16000] * 8 + [15000]
+    starts = np.cumsum([0] + lengths[:-1])
+    clips = [sig[a : a + n].copy() for a, n in zip(starts, lengths)]
+    cfg = port.EncoderConfig()
+    buckets = set()
+    for c in clips:
+        _, _, _, lb, db = enc._prep_signal(c, cfg)
+        assert enc._plan_search(cfg, lb // cfg.range_size, db)[0] == "exact"
+        buckets.add((lb, db))
+    assert len(buckets) == 3
+    kernels.reset_launch_counts()
+    packed = port.compress_audio_packed(clips, 16000, 2, device="cuda")
+    launches = dict(kernels.LAUNCHES)
+    assert launches["search_scan"] == 3 and launches["bank_means"] == 3
+    assert not any(launches[k] for k in ("topc_scan", "refine_window", "window_stats",
+                                         "staged_refine", "staged_stats",
+                                         "search_scan_wide", "topc_scan_wide"))
+    assert kernels.PACKS["stacks"] == 3 and kernels.PACKS["stack_files"] == 16
+    for c, got in zip(clips, packed):
+        one = port.compress_audio_arrays(c, 16000, 2, device="cuda")
+        np.testing.assert_array_equal(got[0].view(np.uint8), one[0].view(np.uint8))
+        np.testing.assert_array_equal(got[1], one[1])
+        assert tuple(got[2:]) == tuple(one[2:])
+
+
 def _wav(tmp_path, seconds, sr=44100):
     path = tmp_path / "in.wav"
     port.write_wav(path, bench.make_signal(seconds, sr), sr, 2)

@@ -188,6 +188,53 @@ def test_packed_cpu_run_launches_no_kernel():
     assert not any(kernels.LAUNCHES.values())
 
 
+#: What one packed call of each fixture adds to kernels.PACKS at tile 128
+#: (range size 4, domain step 1): per stack its files' (n_ranges,
+#: n_domains) and its bucket (mb, db). The mixed call: 8 signals, the
+#: empty one in no stack; the 16,000-sample tone alone; the four tones of
+#: 16,700-18,800 samples together; the silent int16 file; the float file.
+#: The boundary call: PACK_B_MAX files, then 3, of 12,000 samples.
+_PACKS_WANT = {
+    "mixed": (8, [([(4000, 15873)], (4096, 16384)),
+                  ([(4175, 16573), (4350, 17273), (4525, 17973), (4700, 18673)],
+                   (5120, 20480)),
+                  ([(2000, 7873)], (2048, 8192)),
+                  ([(2250, 8873)], (2560, 10240))]),
+    "boundary": (port.PACK_B_MAX + 3, [([(3000, 11873)] * port.PACK_B_MAX, (3072, 12288)),
+                                       ([(3000, 11873)] * 3, (3072, 12288))]),
+}
+
+
+@pytest.mark.parametrize("field", sorted(kernels.PACKS))
+@pytest.mark.parametrize("name", sorted(_PACKS_WANT))
+def test_packed_call_counts_its_packing(name, field):
+    """kernels.PACKS after one packed call: the call, its signals, each
+    stack launched with its files, and the valid and bucketed pairs of
+    each stack's scan grid."""
+    clips, stacks = _PACKS_WANT[name]
+    want = {
+        "calls": 1, "clips": clips, "stacks": len(stacks),
+        "stack_files": sum(len(f) for f, _ in stacks),
+        "valid_pairs": sum(nr * nd for f, _ in stacks for nr, nd in f),
+        "grid_pairs": sum(len(f) * mb * db for f, (mb, db) in stacks),
+    }
+    key = ("packs", name)
+    if key not in _CACHE:
+        kernels.reset_launch_counts()
+        port.compress_audio_packed(FIXTURES[name](), 16000, 2, tile_size=128, device="cpu")
+        _CACHE[key] = dict(kernels.PACKS)
+    assert _CACHE[key][field] == want[field]
+
+
+def test_packs_zeroed_by_reset_and_left_by_single_encodes():
+    port.compress_audio_packed(_mixed_sigs()[:2], 16000, 2, tile_size=128, device="cpu")
+    assert kernels.PACKS["calls"] > 0 and kernels.PACKS["grid_pairs"] > 0
+    kernels.reset_launch_counts()
+    assert not any(kernels.PACKS.values())
+    port.compress_audio_arrays(_mixed_sigs()[0], 16000, 2, tile_size=128, device="cpu")
+    assert not any(kernels.PACKS.values())
+
+
 def _gains64(sig, n, bank, idx, rows):
     """float64 balanced gains of bank rows idx for the raw ranges rows."""
     pad = (-len(sig)) % n
