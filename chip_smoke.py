@@ -702,6 +702,7 @@ def main() -> int:
     mesh_kernel_checks(kernels, enc, dev, sig, stream_sig, checks)
     wide_kernel_checks(kernels, dev, checks)
     bank_kernel_checks(kernels, dev, checks)
+    refit_kernel_checks(kernels, dev, checks)
     for key, val in checks.items():
         emit({"phase": "kernel", "check": key, "card": smi, **val})
     lap("kernels")
@@ -1101,6 +1102,66 @@ def bank_kernel_checks(kernels, dev, checks):
                  "host_build_ms": statistics.median(walls)}
         checks[key] = timed(check, lambda: kernels.bank_means(*args),
                             lambda: kernels.bank_means_ref(*args))
+
+
+#: The refit kernel at the default geometry (4 taps): the same two files.
+REFIT_CHECKS = [("refit_10s", 10.0), ("refit_94s", 94.0)]
+
+
+def refit_kernel_checks(kernels, dev, checks):
+    """collect_refit, in the variant models/refit.py's self-check picks,
+    against its plain version (the native refit of the host path, every
+    record byte and both counts) on the file's own records' codes, timed
+    on the card alone (graph_ms), with its bytes bound (per range its code
+    and record, per live range its samples and bank row, once); beside it
+    the copy of its output into pinned host memory (CUDA events) and the
+    native refit it replaces (models/encode.py collect_idx_matches on the
+    float32 ranges and the host bank, host clock, median of 5)."""
+    import numpy as np
+    import torch
+
+    from bench import make_signal
+    from fwav_tpu_torch.models import encode as enc
+    from fwav_tpu_torch.models import refit
+
+    cfg = enc.EncoderConfig()
+    n = cfg.range_size
+    mode = refit.refit_mode(dev, n)  # raises where no variant gives the host's bits
+    for key, seconds in REFIT_CHECKS:
+        sig = make_signal(seconds)
+        raw_p, nr, nd, lb, db = enc._prep_signal(sig, cfg)
+        x = torch.from_numpy(raw_p[None]).to(dev)
+        bank = kernels.bank_means(x, [nd], cfg.tile_size, n, cfg.domain_step)
+        rng = np.random.default_rng(int(seconds))
+        idx = rng.integers(0, nd, lb // n)
+        idx[rng.random(len(idx)) < 0.08] = -1  # about a 10 s file's share of sentinels
+        idx[nr:] = -1
+        c3 = np.stack([(idx >> k) & 0xFF for k in (0, 8, 16)], -1).astype(np.uint8)
+        codes = torch.from_numpy(c3[None]).to(dev)
+        args = (codes, x, bank, [len(sig)], [nd], n, cfg.s_clip)
+        got = kernels.collect_refit(*args, mode).cpu()
+        plain = kernels.collect_refit_ref(*args)
+        if not torch.equal(got, plain):
+            raise AssertionError(f"{key}: collect_refit differs from the native refit")
+        host_bank = bank[0, :nd].cpu().numpy()
+        ranges = np.pad(sig, (0, nr * n - len(sig)), mode="reflect").reshape(nr, n)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            enc.collect_idx_matches(c3[:nr], nr, ranges, host_bank, cfg.s_clip)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        live = int((idx >= 0).sum())
+        host = torch.empty(got.shape, dtype=torch.uint8, pin_memory=True)
+        out = kernels.collect_refit(*args, mode)
+        check = {"ranges": nr, "live": live, "rows": nd, "mode": mode, "max_abs_err": 0.0,
+                 "shape": [len(sig), nr, nd, n],
+                 **bound({"bytes": (nr * (3 + 17) + live * 6 * n) / HBM_BYTES_PER_S * 1e3}),
+                 "out_bytes": int(got.numel()),
+                 "copy_ms": cuda_ms(lambda: host.copy_(out, non_blocking=True)),
+                 "host_refit_ms": statistics.median(walls)}
+        checks[key] = timed(check, lambda: kernels.collect_refit(*args, mode),
+                            lambda: kernels.collect_refit_ref(*args), plain_reps=3,
+                            plain_warmup=1, timer=graph_ms)
 
 
 def staged_kernel_checks(port, kernels, enc, dev, checks):
@@ -1995,7 +2056,7 @@ def packed_phase(port, kernels, enc, smi):
         if (plan[2] == "staged") != (phase == "packed_staged"):
             raise AssertionError(f"{phase}: the plan is {plan}")
         want = {**dict.fromkeys(launches, 0), scan: stacks, "refine_window": k2,
-                "window_stats": k2, "bank_means": stacks,
+                "window_stats": k2, "bank_means": stacks, "collect_refit": stacks,
                 "staged_refine": stacks if plan[2] == "staged" else 0,
                 "staged_stats": stacks if plan[2] == "staged" and kernels.staged_uses_table(
                     cfg.range_size, plan[1], enc._coarse_topc(cfg), False) else 0}
@@ -2128,7 +2189,7 @@ def wide_phase(port, kernels, smi, sig):
         scan = "topc_scan_wide" if kw.get("objective") == "damped" else "search_scan_wide"
         k4 = int(plan[2] == "staged")
         want = {**dict.fromkeys(launches, 0), scan: 1, "staged_refine": k4, "staged_stats": k4,
-                "bank_means": 1}
+                "bank_means": 1, "collect_refit": 1}
         if launches != want:
             raise AssertionError(f"wide {name}: launches {launches}, expected {want}")
         rec, bank, n_ranges, rs, *_, olen = res
@@ -2215,7 +2276,8 @@ KERNEL_KEYS = (("search_scan_wide_kernel", "search_scan_wide"),
                ("window_stats_kernel", "window_stats"),
                ("staged_refine_kernel", "staged_refine"),
                ("staged_stats_kernel", "staged_stats"),
-               ("bank_means_kernel", "bank_means"))
+               ("bank_means_kernel", "bank_means"),
+               ("collect_refit_kernel", "collect_refit"))
 
 
 def traced_kernels(fn):
@@ -2483,7 +2545,8 @@ def multichannel_phase(port, kernels, smi):
     # the bank is built on the card only where both channels are whole numbers
     whole = all(np.array_equal(c, np.round(c)) for c in chans)
     if launches != {**dict.fromkeys(launches, 0), "topc_scan": 1, "refine_window": 1,
-                    "window_stats": 1, "bank_means": int(whole)}:
+                    "window_stats": 1, "bank_means": int(whole),
+                    "collect_refit": int(whole)}:
         raise AssertionError(f"multichannel: both channels are one stack, launches {launches}")
     if not np.isfinite(recon).all() or recon.shape != stereo.shape:
         raise AssertionError("multichannel: the decode is not finite or has the wrong shape")
@@ -2652,10 +2715,10 @@ def cli_phase(port, kernels, smi, sig, stream_sig, api_files):
               "file_equal_to_in_process": True})
 
         # topk: the compatibility mode, no search kernel (the 16-bit file's bank is
-        # bank_means'), held to the JAX CLI's run
+        # bank_means', its refit collect_refit's), held to the JAX CLI's run
         launches = call("compress --search topk", ["compress", wav10, d / "t.fwav", "--search",
                                                    "topk"], 10.0)[0]
-        if launches != {**dict.fromkeys(launches, 0), "bank_means": 1}:
+        if launches != {**dict.fromkeys(launches, 0), "bank_means": 1, "collect_refit": 1}:
             raise AssertionError(f"topk launched kernels: {launches}")
         out["topk"] = launches
         rec = port.load_compressed_arrays(d / "t.fwav")[0]
@@ -2710,7 +2773,7 @@ def cli_phase(port, kernels, smi, sig, stream_sig, api_files):
                                                       "--out", d / "packed"],
                         10.0 * PACK_FILES + 7.0)[0]
         want = {**dict.fromkeys(launches, 0), "search_scan": 2, "refine_window": 2,
-                "window_stats": 2, "bank_means": 2}
+                "window_stats": 2, "bank_means": 2, "collect_refit": 2}
         if launches != want:
             raise AssertionError(f"cli packed: launches {launches}, one of each kernel per "
                                  f"stack: {want}")
@@ -3046,7 +3109,7 @@ def _phase_ms(phases) -> dict:
 def trace_phase(port, kernels, smi, sig, stream_sig):
     """The phase table of fwav_tpu_torch/utils/trace.py on the card: the
     10 s main path (default and damped) with TRACE_KEYS' keys and the JAX
-    nesting, a packed stack of 16 (its refit summed over the files), the
+    nesting, a packed stack of 16 (its files refit on the card), the
     100 s stream (each phase its `stats` sum), a torch_profile trace of the
     default encode (every phase range and K1's and K2's kernels in it, the
     card's busy time beside the phases), busy_ms inside and outside a
@@ -3059,7 +3122,6 @@ def trace_phase(port, kernels, smi, sig, stream_sig):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from fwav_tpu_torch.models import encode as enc
     from fwav_tpu_torch.utils import collect_phases, torch_profile
 
     out, report = {}, {"phase": "trace", "card": smi}
@@ -3083,34 +3145,23 @@ def trace_phase(port, kernels, smi, sig, stream_sig):
         report[name] = {"phases_ms": _phase_ms(ph), "wall_ms": wall * 1e3,
                         "launches": launches}
 
-    # packed: the 16 files of the packed phase; refit once per file
+    # packed: the 16 files of the packed phase, refit on the card in one launch; the
+    # host half's `refit` (the records' view) once per file
     stack = packed_signals(10.0, PACK_FILES)
     port.compress_audio_packed(stack, 44100, 2, device="cuda")  # warm
-    refits = []
-    orig = enc.collect_idx_matches
-
-    def timed_refit(*a, **k):
-        t0 = time.perf_counter()
-        try:
-            return orig(*a, **k)
-        finally:
-            refits.append(time.perf_counter() - t0)
-
-    enc.collect_idx_matches = timed_refit
-    try:
-        with collect_phases() as ph:
-            port.compress_audio_packed(stack, 44100, 2, device="cuda")
-    finally:
-        enc.collect_idx_matches = orig
+    kernels.reset_launch_counts()
+    with collect_phases() as ph:
+        port.compress_audio_packed(stack, 44100, 2, device="cuda")
     if sorted(ph) != port_keys("packed"):
         raise AssertionError(f"trace packed: keys {sorted(ph)}")
-    if len(refits) != PACK_FILES or not ph["refit"] >= sum(refits) > 0:
-        raise AssertionError(f"trace packed: refit {ph['refit']} over {len(refits)} files "
-                             f"timed {sum(refits)}")
+    refits = dict(kernels.REFITS)
+    if (refits != {"device": PACK_FILES, "host": 0} or kernels.LAUNCHES["collect_refit"] != 1
+            or not ph["refit"] > 0):
+        raise AssertionError(f"trace packed: refit {ph['refit']}, files {refits}, "
+                             f"launches {kernels.LAUNCHES['collect_refit']}")
     if not ph["device"] >= ph["d2h"] >= ph["host_bank"] > 0:
         raise AssertionError(f"trace packed: the phases do not nest: {ph}")
-    report["packed"] = {"files": PACK_FILES, "phases_ms": _phase_ms(ph),
-                        "refit_calls": len(refits)}
+    report["packed"] = {"files": PACK_FILES, "phases_ms": _phase_ms(ph), "refits": refits}
 
     # the 100 s stream: phases and stats read one clock
     for name, kw in (("stream_damped", {"objective": "damped"}), ("stream_balanced", {})):

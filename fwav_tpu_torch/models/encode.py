@@ -10,7 +10,11 @@ from the JAX package, refits s, o, err and the orientation against the
 serialized bank. That bank is built on the card where the samples are
 whole numbers (`bank_means` on the int16 samples the program holds, its
 rows copied back while the program runs), else on the host
-(`build_domains_host`): the same bits either way (`_bank_builds`).
+(`build_domains_host`): the same bits either way (`_bank_builds`). Where
+such a stack runs on one card (models/refit.py says when), its refit runs
+there too: `collect_refit` turns the codes into the records behind the
+program, and the records leave the device in place of the codes, the
+native refit's bits.
 
 The search takes the JAX package's kernel path (EncoderConfig.use_pallas
 there): "exact" is K1 over the whole bank; "coarse" with one lobe is K1
@@ -74,6 +78,7 @@ from ..ops.domains import box_sums, build_bank, build_domains_host, n_domains_fo
 from ..ops.kernels import (
     BANK_BUILDS,
     PACKS,
+    REFITS,
     bank_means,
     check_refine_lead,
     pallas_blocks_ok,
@@ -98,6 +103,8 @@ from ..utils.buckets import bucket, pad_to
 from ..utils.logging import device_banner
 from ..utils.trace import phase
 from .program import PROGRAMS
+from .refit import CardRecords, card_refit_mode
+from .refit import start as card_refit
 
 #: One card, one queue: the device programs of concurrent callers (the
 #: CLI's batch threads) run one at a time under this lock, as in the JAX
@@ -833,9 +840,10 @@ def _host_zero_sign(bank: np.ndarray, signal: np.ndarray, block_len: int) -> np.
 
 def _bank_builds(raw, files, cfg: EncoderConfig, device):
     """Starts the serialized banks of a stack (files as _encode_stack's)
-    and returns a function that waits for them: one C-contiguous float32
-    (n_domains, range_size) array a file. An int16 stack (every sample a
-    whole number, _as_i16_or_f32) takes `bank_means` on its samples `raw`
+    and returns a function that waits for them, one C-contiguous float32
+    (n_domains, range_size) array a file, and the device bank (None for a
+    float stack). An int16 stack (every sample a whole number,
+    _as_i16_or_f32) takes `bank_means` on its samples `raw`
     on `device` (moved there if they are not), enqueued here on the current
     stream ahead of the program, and each file's rows are copied on a side
     stream into pinned host memory while the program runs: the bits of
@@ -845,8 +853,8 @@ def _bank_builds(raw, files, cfg: EncoderConfig, device):
     n = cfg.range_size
     if raw.dtype != torch.int16:
         BANK_BUILDS["host"] += len(files)
-        return lambda: [build_domains_host(f[0], cfg.tile_size, n, cfg.domain_step)
-                        for f in files]
+        return (lambda: [build_domains_host(f[0], cfg.tile_size, n, cfg.domain_step)
+                         for f in files]), None
     n_domains = [f[3] for f in files]
     bank = bank_means(raw.to(device), n_domains, cfg.tile_size, n, cfg.domain_step)
     BANK_BUILDS["device"] += len(files)
@@ -872,22 +880,25 @@ def _bank_builds(raw, files, cfg: EncoderConfig, device):
         return [_host_zero_sign(h.numpy(), f[0], cfg.tile_size // n)
                 for h, f in zip(host, files)]
 
-    return wait
+    return wait, bank
 
 
 def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
                   by_file: bool = False):
     """One stack of same-bucket files, each (signal, raw_p, n_ranges,
     n_domains) of _prep_signal: the device program over `mesh`, the
-    idx-only transfer, the host refit. The ranges of the stack split over
+    idx-only transfer, the refit. The ranges of the stack split over
     the cells (_mesh_program), or with `by_file` its files (_packed_cells);
     on one card, where _captured says so, the program of its _core_key is
     replayed instead (models/program.py), the counts in its `meta`.
     The banks (_bank_builds) are built while the devices run (kernel
     launches return at once): on the first local device ahead of the
-    program for an int16 stack, on the host for a float one; one copy per
-    cell brings the codes back. The enqueue of the whole program and the
-    copies each hold DEVICE_LOCK. Returns one result per file."""
+    program for an int16 stack, on the host for a float one. Where
+    models/refit.py card_refit_mode says so, `collect_refit` makes the
+    stack's records on the card behind the program, and one copy brings
+    them back; else one copy per cell brings the codes back for the host
+    refit. The enqueue of the whole program and the copies each hold
+    DEVICE_LOCK. Returns one result per file."""
     raw_np = np.stack([f[1] for f in files])
     n_domains = [f[3] for f in files]
     meta_np = _stack_counts([len(f[0]) for f in files], [f[2] for f in files], n_domains)
@@ -897,6 +908,7 @@ def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
     # the host, "d2h" from the end of the enqueue, "host_bank" inside it
     with phase("device"):
         with DEVICE_LOCK:
+            mode = card_refit_mode(raw_np.dtype, cfg, mesh)
             if _captured(cfg, lb, db, mesh):
                 # one program per shape key, replayed (models/program.py)
                 key = _core_key(cfg, raw_np.shape[1], lb, db, "raw",
@@ -905,32 +917,44 @@ def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
                     key, dev0, (raw_np, meta_np),
                     lambda raw, meta: _program_raw(raw, meta, lb, db, cfg),
                 )
-                banks = _bank_builds(run.inputs[0], files, cfg, dev0)
-                out = run.launch()
-                codes = {0: out if by_file else out.transpose(0, 1)}
+                raw = run.inputs[0]
+                banks, bank = _bank_builds(raw, files, cfg, dev0)
+                stack_codes = run.launch()
+                codes = {0: stack_codes if by_file else stack_codes.transpose(0, 1)}
             elif by_file:
-                banks = _bank_builds(torch.from_numpy(raw_np), files, cfg, dev0)
+                raw = torch.from_numpy(raw_np)
+                if mode is not None:
+                    raw = raw.to(dev0)
+                banks, bank = _bank_builds(raw, files, cfg, dev0)
                 codes = _packed_cells(raw_np, meta_np, lb, db, cfg, mesh)
+                stack_codes = codes.get(0)
             else:  # dp slabs along the range axis, gathered along axis 0
                 raw = torch.from_numpy(raw_np).to(dev0)
                 meta = torch.from_numpy(meta_np).to(raw.device)
-                banks = _bank_builds(raw, files, cfg, dev0)
+                banks, bank = _bank_builds(raw, files, cfg, dev0)
                 codes = _mesh_program(
                     mesh, lambda d: _front_packed(raw.to(d), meta.to(d), lb, cfg),
                     lb, db, cfg)
+                stack_codes = codes.get(0)
                 codes = {i: v.transpose(0, 1) for i, v in codes.items()}
+            if mode is not None:  # a one-cell mesh: codes {0: (B, rb, 3)}
+                records = card_refit(stack_codes, raw, bank, files, cfg, mode)
         with phase("d2h"):
             with phase("host_bank"):
                 banks = banks()
-            with DEVICE_LOCK:
-                c = fetch_global(codes, mesh)
-    if not by_file:
-        c = c.transpose(1, 0, 2)
+            if mode is not None:
+                c = records()
+            else:
+                with DEVICE_LOCK:
+                    c = fetch_global(codes, mesh)
+                if not by_file:
+                    c = c.transpose(1, 0, 2)
+                c = [cj[: f[2]] for cj, f in zip(c, files)]
+    REFITS["host" if mode is None else "device"] += len(files)
     out = []
     for j, (signal, _, n_ranges, n_domains) in enumerate(files):
         assert len(banks[j]) == n_domains
-        out.append(_finalize_encode(c[j][:n_ranges], signal, cfg, n_ranges, len(signal),
-                                    banks[j]))
+        out.append(_finalize_encode(c[j], signal, cfg, n_ranges, len(signal), banks[j]))
     return out
 
 
@@ -948,10 +972,14 @@ def _compress_fast(signal: np.ndarray, cfg: EncoderConfig, mesh: Mesh):
 def _finalize_encode(c, signal, cfg, n_ranges, original_len, bank):
     """Host half of the idx-only protocol: sentinel classification and the
     exact refit of the device's selections against the serialized bank
-    (copied from the JAX package)."""
+    (copied from the JAX package). `c` is the file's 3-byte codes, or where
+    the card refit them (models/refit.py) its CardRecords, whose records
+    only need checking here."""
     range_size = cfg.range_size
     pad_len = (range_size - (original_len % range_size)) % range_size
-    if cfg.fast_mode and bool(np.all(c == 0xFF)):  # every code 0xFFFFFF
+    card = isinstance(c, CardRecords)
+    silent = c.live == 0 if card else bool(np.all(c == 0xFF))  # every code 0xFFFFFF
+    if cfg.fast_mode and silent:
         # all pruned: an all-silent file gives the empty container
         with phase("vad"):
             voiced = voiced_detection(
@@ -959,6 +987,8 @@ def _finalize_encode(c, signal, cfg, n_ranges, original_len, bank):
             )
         if float(np.sum((signal * voiced).astype(np.float64) ** 2)) < 1e-8:
             return _empty_result(cfg, original_len)
+        ranges_host = None
+    elif card:
         ranges_host = None
     elif cfg.fast_mode:
         # every live range is fully voiced, so the raw ranges are its refit
@@ -979,7 +1009,12 @@ def _finalize_encode(c, signal, cfg, n_ranges, original_len, bank):
         ranges_host = weighted.reshape(n_ranges, range_size)
 
     with phase("refit"):
-        rec = collect_idx_matches(c, n_ranges, ranges_host, bank, cfg.s_clip)
+        if card:
+            if c.bad:
+                raise IndexError("collect: domain index out of range for the bank")
+            rec = c.rec
+        else:
+            rec = collect_idx_matches(c, n_ranges, ranges_host, bank, cfg.s_clip)
     return (
         rec, bank, n_ranges, range_size, cfg.tile_size, cfg.domain_step,
         cfg.energy_thresh, original_len,

@@ -119,6 +119,8 @@ def _bind(lib):
     ]
     lib.fwav_bank_means.restype = i
     lib.fwav_bank_means.argtypes = [p, i, q, ctypes.POINTER(i), q, i, i, i, p, p]
+    lib.fwav_collect_refit.restype = i
+    lib.fwav_collect_refit.argtypes = [p, i, q, p, q, p, q, i, f, i, p, p, p, p, q, p]
     ll = ctypes.POINTER(ctypes.c_longlong)
     lib.fwav_graph_node_kinds.restype = i
     lib.fwav_graph_node_kinds.argtypes = [p, p, ctypes.c_longlong, ll, ll]

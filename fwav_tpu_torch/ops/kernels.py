@@ -34,11 +34,19 @@ and one kernel with no Pallas counterpart:
   in fwav_tpu/ops/domains.py) for stacks of integer-valued samples, which
   reach the card as int16: the same bits, from exact integer block sums.
   CUDA source: csrc/bank_means.cu.
+- `collect_refit` replaces the host refit of a stack's codes
+  (models/encode.py collect_idx_matches, the native fwav_collect; the JAX
+  package's collect_idx_matches in fwav_tpu/models/encode.py) where the
+  stack's samples and bank are on the card: the packed MATCH records, the
+  bits of the native refit on the same host (the arithmetic variant that
+  models/refit.py's self-check picks). CUDA source: csrc/collect_refit.cu
+  and csrc/collect_refit.cuh.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor takes
 the plain PyTorch version (`search_scan_ref`, `topc_scan_ref`,
 `refine_window_ref`, `window_stats_ref`, `staged_refine_ref`, which runs
-`refine_from_lobes`, defined here, `staged_stats_ref`, `bank_means_ref`), a
+`refine_from_lobes`, defined here, `staged_stats_ref`, `bank_means_ref`,
+`collect_refit_ref`), a
 CUDA tensor launches the kernel or raises. The plain versions are the spec, and on the
 same inputs each kernel agrees with its plain version bit for bit: K2 computes in its
 order of operations; K1 and K3 screen every pair on the tensor cores
@@ -67,6 +75,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..io.container import MATCH_DTYPE
 from .affine import row_mean, row_sum
 
 _NEG = float("-inf")
@@ -77,12 +86,17 @@ _EPS = 1e-12
 #: over 16) count under "search_scan_wide" and "topc_scan_wide".
 LAUNCHES = {"search_scan": 0, "topc_scan": 0, "refine_window": 0, "window_stats": 0,
             "search_scan_wide": 0, "topc_scan_wide": 0, "staged_refine": 0,
-            "staged_stats": 0, "bank_means": 0}
+            "staged_stats": 0, "bank_means": 0, "collect_refit": 0}
 #: Serialized banks made since the last reset, one a file, by their source
 #: (models/encode.py _encode_stack): "device", `bank_means` on an int16
 #: stack (the kernel, or on a CPU tensor its plain version); "host",
 #: ops/domains.py build_domains_host on a float stack.
 BANK_BUILDS = {"device": 0, "host": 0}
+#: Files whose codes models/encode.py _encode_stack refit since the last
+#: reset, by where: "device", `collect_refit` on the card (models/refit.py
+#: says when); "host", collect_idx_matches (the native fwav_collect). The
+#: stream's refits (models/stream.py refit_host) are not counted.
+REFITS = {"device": 0, "host": 0}
 #: The packing of compress_audio_packed since the last reset
 #: (models/encode.py): per call 1 to "calls" and its signals to "clips";
 #: per stack launched 1 to "stacks" and its files to "stack_files"; per
@@ -124,8 +138,8 @@ _REFINE_VMEM_MEANS_BYTES = 9 << 20
 
 
 def reset_launch_counts() -> None:
-    """Zero LAUNCHES, BANK_BUILDS and PACKS."""
-    for counts in (LAUNCHES, BANK_BUILDS, PACKS):
+    """Zero LAUNCHES, BANK_BUILDS, REFITS and PACKS."""
+    for counts in (LAUNCHES, BANK_BUILDS, REFITS, PACKS):
         for k in counts:
             counts[k] = 0
 
@@ -1125,4 +1139,119 @@ def bank_means(x, n_domains, tile_size: int, range_size: int, domain_step: int =
         )
     _build.check(lib, code, "bank_means")
     LAUNCHES["bank_means"] += 1
+    return out
+
+
+#: The arithmetic variants of csrc/collect_refit.cuh (its Mode): every
+#: product fused into its sum; fused, but the products of the vectorized
+#: head of each loop rounded first.
+REFIT_FUSED, REFIT_VECTOR8 = 0, 1
+#: Records a file's run of collect_refit's output is rounded up to.
+_REFIT_ALIGN = 16
+
+
+def refit_layout(n_ranges) -> tuple[list[int], int]:
+    """Where `collect_refit` puts a stack's records: each file's first
+    record and the records in all, every file's run rounded up to 16."""
+    starts, total = [], 0
+    for m in n_ranges:
+        starts.append(total)
+        total += -(-int(m) // _REFIT_ALIGN) * _REFIT_ALIGN
+    return starts, total
+
+
+def split_records(buf: np.ndarray, n_ranges) -> list[tuple[np.ndarray, int, int]]:
+    """`collect_refit`'s output as uint8 host bytes -> per file (its
+    n_ranges MATCH_DTYPE records, a view into buf; its live records; its
+    bad codes)."""
+    starts, total = refit_layout(n_ranges)
+    rec = buf[: total * MATCH_DTYPE.itemsize].view(MATCH_DTYPE)
+    flags = buf[total * MATCH_DTYPE.itemsize :].view(np.int32).reshape(-1, 2)
+    return [(rec[s : s + int(m)], int(f[0]), int(f[1]))
+            for s, m, f in zip(starts, n_ranges, flags)]
+
+
+def collect_refit_ref(codes, x, bank, lengths, n_domains, range_size: int, s_clip: float):
+    """Plain version of `collect_refit`: each file's ranges as the host
+    path makes them (its samples as float32, the tail reflect-padded) and
+    its bank rows through the native fwav_collect (io/native.py collect,
+    which models/encode.py collect_idx_matches runs); a range whose code is
+    at or past the file's rows is counted as bad and given the sentinel
+    record. Raises where the native library is missing: the numpy refit
+    does not give its bits."""
+    from ..io import native
+
+    n = range_size
+    codes, x, bank = (t.cpu().numpy() for t in (codes, x, bank))
+    n_ranges = [-(-int(L) // n) for L in lengths]
+    starts, total = refit_layout(n_ranges)
+    out = np.empty(total * MATCH_DTYPE.itemsize + 8 * len(lengths), np.uint8)
+    recs = out[: total * MATCH_DTYPE.itemsize].view(MATCH_DTYPE)
+    flags = out[total * MATCH_DTYPE.itemsize :].view(np.int32)
+    recs["idx"], recs["s"], recs["o"], recs["sym"], recs["err"] = -1, 1.0, 0.0, 0, 0.0
+    for b, (L, nd, m, s0) in enumerate(zip(lengths, n_domains, n_ranges, starts)):
+        c = codes[b, :m].astype(np.int64) @ np.array([1, 1 << 8, 1 << 16])
+        dead = c == 0xFFFFFF
+        bad = ~dead & (c >= int(nd))
+        b3 = np.where(bad[:, None], np.uint8(0xFF), codes[b, :m]).astype(np.uint8)
+        sig = x[b, : int(L)].astype(np.float32)
+        pad = m * n - int(L)
+        ranges = (np.pad(sig, (0, pad), mode="reflect") if pad else sig).reshape(m, n)
+        rec = native.collect(b3, np.ascontiguousarray(ranges), bank[b, : int(nd)], s_clip)
+        if rec is None:
+            raise RuntimeError("collect_refit_ref: the native refit library is not built")
+        recs[s0 : s0 + m] = rec
+        flags[2 * b] = int(np.sum(~dead & ~bad))
+        flags[2 * b + 1] = int(np.sum(bad))
+    return torch.from_numpy(out)
+
+
+def collect_refit(codes, x, bank, lengths, n_domains, range_size: int, s_clip: float,
+                  mode: int = REFIT_FUSED):
+    """The packed MATCH records of a stack's codes, from its samples and
+    banks: codes (B, rb, 3) uint8 (0xFFFFFF the sentinel), x (B, nb)
+    int16, bank (B, D, range_size) float32 (bank_means' output), per file
+    its sample count and domain count (host ints). Each live range is
+    refit against its row as collect_idx_matches refits it, in the
+    arithmetic variant `mode` (REFIT_*); the last range of a file takes its
+    reflect-padded tail. Returns a flat uint8 tensor: the records
+    (refit_layout; split_records views them) and then per file two int32,
+    its live records and its bad codes (at or past its domain count, given
+    the sentinel record). A CPU tensor takes collect_refit_ref (`mode` is
+    not used); a CUDA tensor is one launch a stack (csrc/collect_refit.cu),
+    on the current stream, counted in LAUNCHES."""
+    dev = codes.device
+    if dev.type == "cpu":
+        return collect_refit_ref(codes, x, bank, lengths, n_domains, range_size, s_clip)
+    if dev.type != "cuda":
+        raise ValueError(f"collect_refit: unsupported device {dev}")
+    _cuda_args("collect_refit", {"codes": codes, "x": x, "bank": bank},
+               [(torch.uint8,), (torch.int16,), (torch.float32,)], dev)
+    B, n = codes.shape[0], range_size
+    lengths = [int(v) for v in lengths]
+    n_domains = [int(v) for v in n_domains]
+    if (codes.dim() != 3 or codes.shape[2] != 3 or x.dim() != 2 or bank.dim() != 3
+            or x.shape[0] != B or bank.shape[0] != B or bank.shape[2] != n
+            or len(lengths) != B or len(n_domains) != B):
+        raise ValueError(f"collect_refit: codes {tuple(codes.shape)}, x {tuple(x.shape)}, bank "
+                         f"{tuple(bank.shape)} and {len(lengths)} lengths do not make a stack "
+                         f"at range size {n}")
+    rb = codes.shape[1]
+    n_ranges = [-(-L // n) for L in lengths]
+    _, total = refit_layout(n_ranges)
+    out = torch.empty(total * MATCH_DTYPE.itemsize + 8 * B, dtype=torch.uint8, device=dev)
+
+    from . import _build
+
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.fwav_collect_refit(
+            _ptr(codes), B, rb, _ptr(x), x.shape[1], _ptr(bank), bank.shape[1], n,
+            float(s_clip), int(mode), (ctypes.c_longlong * B)(*lengths),
+            (ctypes.c_int * B)(*n_ranges), (ctypes.c_int * B)(*n_domains), _ptr(out),
+            out.numel(), ctypes.c_void_p(stream),
+        )
+    _build.check(lib, code, "collect_refit")
+    LAUNCHES["collect_refit"] += 1
     return out

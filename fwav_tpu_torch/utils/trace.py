@@ -20,11 +20,15 @@ only while a profiler records, so that otherwise a phase costs two clock
 reads and a table update.
 
 Beside the phases the program keeps counters (fwav_tpu_torch/ops/
-kernels.py): `LAUNCHES`, kernel launches per kernel; `BANK_BUILDS`, banks
-by where they were built; `PACKS`, the packing of compress_audio_packed:
-its calls and clips, its stacks and their files (one `device`, `d2h` and
-`host_bank` a stack, one `prep` and `refit` a file), and the valid and the
-bucketed pairs of each stack's scan grid.
+kernels.py): `LAUNCHES`, kernel launches per kernel (`collect_refit`, the
+refit on the card, one a stack whose codes it refits); `BANK_BUILDS`,
+banks by where they were built; `REFITS`, the files of single-shot and
+packed stacks by where their codes were refit ("device": `collect_refit`,
+whose records the host only views in `refit` and whose time is in `d2h`;
+"host": the native refit, all of `refit`); `PACKS`, the packing of
+compress_audio_packed: its calls and clips, its stacks and their files
+(one `device`, `d2h` and `host_bank` a stack, one `prep` and `refit` a
+file), and the valid and the bucketed pairs of each stack's scan grid.
 
 Usage:
     with collect_phases() as phases:

@@ -24,6 +24,7 @@ import torch
 
 import bench
 import fwav_tpu_torch as port
+from fwav_tpu_torch.models import refit
 from fwav_tpu_torch.ops import kernels
 from fwav_tpu_torch.ops.affine import affine_stats
 from fwav_tpu_torch.ops.search import domain_thresh, domain_weights
@@ -35,10 +36,13 @@ NO_WIDE = {"search_scan_wide": 0, "topc_scan_wide": 0}
 #: K4, the staged refine, and its table, which the window-refine paths
 #: never launch.
 NO_K4 = {"staged_refine": 0, "staged_stats": 0}
-#: The serialized bank's kernel: one launch an encode of whole-valued
-#: samples (every bench.make_signal file), none in the stream.
-BANK = {"bank_means": 1}
-NO_BANK = {"bank_means": 0}
+#: The serialized bank's kernel and the refit's: one launch each an encode
+#: of whole-valued samples (every bench.make_signal file) on one card, none
+#: in the stream; a mesh of several cells builds its bank on the first
+#: and refits on the host.
+BANK = {"bank_means": 1, "collect_refit": 1}
+NO_BANK = {"bank_means": 0, "collect_refit": 0}
+MESH_BANK = {"bank_means": 1, "collect_refit": 0}
 
 
 @pytest.fixture
@@ -531,6 +535,7 @@ def test_packed_clips_on_the_card_equal_the_single_encodes(dev):
     packed = port.compress_audio_packed(clips, 16000, 2, device="cuda")
     launches = dict(kernels.LAUNCHES)
     assert launches["search_scan"] == 3 and launches["bank_means"] == 3
+    assert launches["collect_refit"] == 3 and kernels.REFITS == {"device": 16, "host": 0}
     assert not any(launches[k] for k in ("topc_scan", "refine_window", "window_stats",
                                          "staged_refine", "staged_stats",
                                          "search_scan_wide", "topc_scan_wide"))
@@ -594,13 +599,13 @@ def test_topk_on_the_card_matches_the_host(dev):
 
 @pytest.mark.parametrize("seconds,kw,launches", [
     (2.0, {}, {"search_scan": 4, "topc_scan": 0, "refine_window": 4, "window_stats": 4,
-               **NO_WIDE, **NO_K4, **BANK}),
+               **NO_WIDE, **NO_K4, **MESH_BANK}),
     (2.0, {"objective": "damped"},
      {"search_scan": 0, "topc_scan": 4, "refine_window": 4, "window_stats": 4,
-      **NO_WIDE, **NO_K4, **BANK}),
+      **NO_WIDE, **NO_K4, **MESH_BANK}),
     (0.5, {"search": "exact"},
      {"search_scan": 4, "topc_scan": 0, "refine_window": 0, "window_stats": 0,
-      **NO_WIDE, **NO_K4, **BANK}),
+      **NO_WIDE, **NO_K4, **MESH_BANK}),
 ])
 def test_repeated_card_mesh_matches_one_device(dev, seconds, kw, launches):
     """A (2, 2) mesh of four cells on cuda:0 (parallel/mesh.py) gives the
@@ -608,7 +613,7 @@ def test_repeated_card_mesh_matches_one_device(dev, seconds, kw, launches):
     damped: the cells split the ranges, each runs K1 or K3 and K2 with its
     table once) and exact (each cell runs K1 once over its bank row
     shard); the serialized bank is one bank_means launch on the first
-    cell."""
+    cell, and the refit runs on the host."""
     from fwav_tpu_torch.parallel import Mesh, compress_audio_sharded
 
     sig = bench.make_signal(seconds)
@@ -1277,3 +1282,120 @@ def test_encodes_on_the_card_ship_the_host_bank(dev):
     got = port.compress_audio_arrays(noisy, 44100, 2, device="cuda")
     assert kernels.BANK_BUILDS == {"device": 6, "host": 1}
     np.testing.assert_array_equal(got[1], build_domains_host(noisy, 1024, 4, 1))
+
+
+# --- the refit on the card (csrc/collect_refit.cu) ----------------------------
+
+
+def _refit_stack(dev, case):
+    """collect_refit's arguments for a check case, up to the range size."""
+    args = tuple(torch.from_numpy(a).to(dev) for a in (case.codes, case.x, case.bank))
+    return args + ([len(s) for s in case.signals], case.n_domains)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 12, 32])
+def test_collect_refit_equals_the_native_refit(dev, n):
+    """collect_refit in the self-check's variant against its plain version
+    (the native refit of the host path) on stacks of three files of
+    different lengths with reflected tails, sentinels, rows at the
+    orientation rule's tie edge and 1-2 float32 steps either side, and
+    palindromes (refit.check_case at seeds the self-check does not use), at
+    s_clip 16 and 2: every byte of every record, and each file's live and
+    bad counts; and against the host path's records on the float samples
+    and host banks (a -0.0 first bank value there)."""
+    for seed in (3, 4):
+        case = refit.check_case(n, seed)
+        args = _refit_stack(dev, case)
+        mode = refit.refit_mode(dev, n)
+        assert mode == (kernels.REFIT_FUSED if n in (4, 8, 16) else kernels.REFIT_VECTOR8)
+        for clip in (16.0, 2.0):
+            got = kernels.collect_refit(*args, n, clip, mode).cpu()
+            assert torch.equal(got, kernels.collect_refit_ref(*args, n, clip))
+            want = refit.host_records(case, n, clip)
+            parts = kernels.split_records(got.numpy(), [len(w) for w in want])
+            for (rec, live, bad), w in zip(parts, want):
+                assert rec.tobytes() == w.tobytes()
+                assert (live, bad) == (int((w["idx"] >= 0).sum()), 0)
+                assert (w["sym"] == 1).any() and (w["idx"] < 0).any()
+
+
+def test_collect_refit_flags_codes_past_the_bank(dev):
+    """A code at or past its file's domain count: counted as bad, its
+    record the sentinel, the other records refit; the encode's host half
+    raises the native refit's IndexError for it."""
+    from fwav_tpu_torch.models import encode as enc
+
+    case = refit.check_case(4, 5)
+    codes = case.codes.copy()
+    nd = case.n_domains[1]
+    codes[1, 3] = [nd & 0xFF, (nd >> 8) & 0xFF, nd >> 16]
+    case = case._replace(codes=codes)
+    args = _refit_stack(dev, case)
+    got = kernels.collect_refit(*args, 4, 16.0, refit.refit_mode(dev, 4)).cpu()
+    assert torch.equal(got, kernels.collect_refit_ref(*args, 4, 16.0))
+    parts = kernels.split_records(got.numpy(), [-(-len(s) // 4) for s in case.signals])
+    assert [p[2] for p in parts] == [0, 1, 0] and parts[1][0]["idx"][3] == -1
+    cfg = port.EncoderConfig()
+    sig = case.signals[1]
+    with pytest.raises(IndexError, match="out of range"):
+        enc._finalize_encode(refit.CardRecords(*parts[1]), sig, cfg, len(parts[1][0]),
+                             len(sig), case.host_banks[1])
+
+
+def test_collect_refit_stack_of_16_equals_its_single_launches(dev):
+    """One launch over a stack of 16 files of different lengths gives each
+    file the records and counts of its own launch."""
+    cases = [refit.check_case(4, seed) for seed in range(10, 16)]
+    files = [(c.signals[b], c.x[b], c.codes[b], c.bank[b], c.n_domains[b])
+             for c in cases for b in range(3)][:16]
+    nb = max(f[1].shape[0] for f in files)
+    rb = max(f[2].shape[0] for f in files)
+    D = max(f[3].shape[0] for f in files)
+    x = np.zeros((16, nb), np.int16)
+    codes = np.full((16, rb, 3), 0xFF, np.uint8)
+    bank = np.zeros((16, D, 4), np.float32)
+    for b, f in enumerate(files):
+        x[b, : len(f[1])], codes[b, : len(f[2])], bank[b, : len(f[3])] = f[1], f[2], f[3]
+    mode = refit.refit_mode(dev, 4)
+    lengths, nds = [len(f[0]) for f in files], [f[4] for f in files]
+    kernels.reset_launch_counts()
+    stack = kernels.collect_refit(*(torch.from_numpy(a).to(dev) for a in (codes, x, bank)),
+                                  lengths, nds, 4, 16.0, mode).cpu().numpy()
+    assert kernels.LAUNCHES["collect_refit"] == 1
+    n_ranges = [-(-L // 4) for L in lengths]
+    for b, f in enumerate(files):
+        one = kernels.collect_refit(
+            *(torch.from_numpy(a[b : b + 1]).to(dev) for a in (codes, x, bank)),
+            [lengths[b]], [nds[b]], 4, 16.0, mode).cpu().numpy()
+        got, want = kernels.split_records(stack, n_ranges)[b], kernels.split_records(
+            one, [n_ranges[b]])[0]
+        assert got[0].tobytes() == want[0].tobytes() and got[1:] == want[1:]
+
+
+def test_refit_self_check_raises_where_no_variant_matches(dev, monkeypatch):
+    """A fresh self-check's launches are not counted: the encode after it
+    counts its one collect_refit launch and its file under
+    REFITS["device"]. Where no variant gives the native refit's records
+    (here one bit of one record differs), the encode of an int16 stack on
+    one card raises: it is not handed back to the host refit."""
+    sig = bench.make_signal(2.0)
+    monkeypatch.setattr(refit, "_modes", {})
+    kernels.reset_launch_counts()
+    port.compress_audio_arrays(sig, 44100, 2, device="cuda")
+    assert kernels.REFITS == {"device": 1, "host": 0}
+    assert kernels.LAUNCHES["collect_refit"] == 1
+    real = refit.host_records
+
+    def records(case, n, s_clip):
+        want = real(case, n, s_clip)
+        want[0]["err"].view(np.uint32)[5] ^= 1
+        return want
+
+    monkeypatch.setattr(refit, "host_records", records)
+    monkeypatch.setattr(refit, "_modes", {})
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="none of its arithmetic variants"):
+        port.compress_audio_arrays(sig, 44100, 2, device="cuda")
+    assert kernels.REFITS == {"device": 0, "host": 0}
+    assert kernels.LAUNCHES["collect_refit"] == 0
+

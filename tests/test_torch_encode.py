@@ -35,7 +35,10 @@ from fwav_tpu.ops.domains import box_sums as jax_box_sums
 from fwav_tpu.utils.metrics import compute_snr
 from fwav_tpu_torch.config import EncoderConfig
 from fwav_tpu_torch.models import encode as port_encode
+from fwav_tpu_torch.models import refit
 from fwav_tpu_torch.ops import kernels
+from fwav_tpu_torch.parallel import Mesh, compress_audio_sharded
+from fwav_tpu_torch.utils.trace import collect_phases
 from native_libs import ensure_native_libraries
 
 ensure_native_libraries()
@@ -334,6 +337,149 @@ def test_packed_stack_builds_each_bank_on_the_device():
         np.testing.assert_array_equal(
             r[1].view(np.uint32),
             port_encode.build_domains_host(sig, 1024, 4, 1).view(np.uint32))
+
+
+class _FakeMesh:
+    """What models/refit.py card_refit_mode reads of a mesh, for devices
+    this machine may not have."""
+
+    def __init__(self, device, size=1, multi_process=False):
+        self.device, self.size, self.multi_process = torch.device(device), size, multi_process
+
+    def first_local_device(self):
+        return self.device
+
+
+@pytest.mark.parametrize("dtype,fast_mode,mesh,check,want", [
+    (np.int16, True, _FakeMesh("cuda"), 1, 1),
+    (np.int16, True, _FakeMesh("cuda"), 2, 2),
+    (np.float32, True, _FakeMesh("cuda"), 1, None),
+    (np.int16, False, _FakeMesh("cuda"), 1, None),
+    (np.int16, True, _FakeMesh("cpu"), 1, None),
+    (np.int16, True, _FakeMesh("cuda", size=2), 1, None),
+    (np.int16, True, _FakeMesh("cuda", multi_process=True), 1, None),
+], ids=["int16", "int16_vector8", "float", "no_fast_mode", "cpu", "two_cells",
+        "two_processes"])
+def test_card_refit_engages_by_what_it_observes(monkeypatch, dtype, fast_mode, mesh, check,
+                                                want):
+    """The refit runs on the card for an int16 stack under fast_mode on a
+    one-cell CUDA mesh of this process, in the self-check's variant; every
+    other stack keeps the host refit (None)."""
+    monkeypatch.setattr(refit, "refit_mode", lambda device, n: check)
+    cfg = EncoderConfig(fast_mode=fast_mode)
+    assert refit.card_refit_mode(np.dtype(dtype), cfg, mesh) == want
+
+
+@pytest.mark.parametrize("host", ["bits_differ", "no_native_library"])
+def test_refit_self_check_raises_where_the_card_cannot_give_the_host_bits(monkeypatch, host):
+    """Where no variant gives the native refit's records (here one bit of
+    one record's err differs), or the native library is missing, the
+    self-check raises (on the CPU its launches take the plain version): a
+    stack that meets the rest of the rule is not handed back to the host
+    refit. Nothing is cached, and the launch count is as it was."""
+
+    def records(case, n, s_clip):
+        if host == "no_native_library":
+            return None
+        want = real(case, n, s_clip)
+        err = want[1]["err"].view(np.uint32)
+        err[3] ^= 1
+        return want
+
+    real = refit.host_records
+    monkeypatch.setattr(refit, "host_records", records)
+    monkeypatch.setattr(refit, "_modes", {})
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="native"):
+        refit.refit_mode("cpu", 4)
+    assert refit._modes == {} and kernels.LAUNCHES["collect_refit"] == 0
+
+
+@pytest.mark.parametrize("case", ["float", "no_fast_mode", "cpu", "two_cells"])
+def test_host_refit_cases_count_under_host(case):
+    """A float stack, fast_mode=False, the CPU device and a two-cell mesh
+    each refit on the host and count their file under REFITS["host"]; no
+    collect_refit runs."""
+    sig = bench.make_signal(1.5)
+    kernels.reset_launch_counts()
+    if case == "two_cells":
+        compress_audio_sharded(sig, 44100, 2, mesh=Mesh([["cpu"] * 2]))
+    else:
+        if case == "float":
+            sig = sig + np.float32(0.25)
+        port.compress_audio_arrays(sig, 44100, 2, device="cpu",
+                                   fast_mode=case != "no_fast_mode")
+    assert kernels.REFITS == {"device": 0, "host": 1}
+    assert not any(kernels.LAUNCHES.values())
+
+
+def _card_refit_on_the_cpu(monkeypatch):
+    """Route int16 stacks under fast_mode through the card refit's path
+    with CPU tensors (collect_refit's plain version, no pinned copy)."""
+    monkeypatch.setattr(port_encode, "card_refit_mode",
+                        lambda dtype, cfg, mesh: kernels.REFIT_FUSED
+                        if dtype == np.int16 and cfg.fast_mode else None)
+
+
+def test_card_refit_path_gives_the_host_records(monkeypatch):
+    """The card refit's path (its records, views into one buffer a stack,
+    and the live and bad counts) on the CPU: a single file and a packed
+    stack of three lengths and an all-silent file give the host path's
+    records byte for byte and its empty result, count under
+    REFITS["device"], and still time the host half's `refit`."""
+    base = bench.make_signal(1.6)
+    sigs = [base, base[:68000].copy(), bench.make_signal(1.2), np.zeros(50000, np.float32)]
+    want = [port.compress_audio_arrays(s, 44100, 2, device="cpu") for s in sigs]
+    _card_refit_on_the_cpu(monkeypatch)
+    kernels.reset_launch_counts()
+    with collect_phases() as ph:
+        one = port.compress_audio_arrays(sigs[0], 44100, 2, device="cpu")
+    assert kernels.REFITS == {"device": 1, "host": 0} and ph["refit"] > 0
+    assert one[0].tobytes() == want[0][0].tobytes()
+    packed = port.compress_audio_packed(sigs, 44100, 2, device="cpu")
+    assert kernels.REFITS == {"device": 5, "host": 0}
+    for got, w in zip(packed, want):
+        assert got[0].dtype == w[0].dtype and got[0].tobytes() == w[0].tobytes()
+        assert tuple(got[2:]) == tuple(w[2:])
+    assert len(packed[3][0]) == 0
+
+
+def test_card_refit_path_records_match_jax(request, monkeypatch):
+    """The card refit's path (collect_refit's plain version, on the CPU)
+    on the 10 s bench signal: the host path's records byte for byte, held
+    to the JAX package's run at the Encode bar (agreeing rows bit for
+    bit)."""
+    sig, J, T = _encode_both(request, "bench10")
+    _, sr, kw, _, max_diffs = CASES["bench10"]
+    cfg = EncoderConfig.from_reference(dataclasses.asdict(JaxEncoderConfig(use_pallas=True,
+                                                                           **kw)))
+    _card_refit_on_the_cpu(monkeypatch)
+    kernels.reset_launch_counts()
+    got = port.compress_audio_arrays(sig, sr, 2, config=cfg, device="cpu")
+    assert kernels.REFITS == {"device": 1, "host": 0}
+    assert got[0].tobytes() == T[0].tobytes()
+    _assert_encode_bar(sig, J, got, cfg, max_diffs)
+
+
+def test_card_refit_raises_for_a_code_past_the_bank():
+    """collect_refit's plain version counts a code at or past its file's
+    rows as bad and gives it the sentinel record; the host half raises
+    the native refit's IndexError for such a file."""
+    case = refit.check_case(4, 7)
+    codes = case.codes.copy()
+    nd = case.n_domains[2]
+    codes[2, 5] = [nd & 0xFF, (nd >> 8) & 0xFF, nd >> 16]
+    out = kernels.collect_refit(*(torch.from_numpy(a) for a in (codes, case.x, case.bank)),
+                                [len(s) for s in case.signals], case.n_domains, 4, 16.0)
+    parts = kernels.split_records(out.numpy(), [-(-len(s) // 4) for s in case.signals])
+    assert [p[2] for p in parts] == [0, 0, 1] and parts[2][0]["idx"][5] == -1
+    want = refit.host_records(case, 4, 16.0)
+    for p, w in zip(parts[:2], want[:2]):
+        assert p[0].tobytes() == w.tobytes() and p[1] == int((w["idx"] >= 0).sum())
+    sig = case.signals[2]
+    with pytest.raises(IndexError, match="out of range"):
+        port_encode._finalize_encode(refit.CardRecords(*parts[2]), sig, EncoderConfig(),
+                                     len(parts[2][0]), len(sig), case.host_banks[2])
 
 
 def _assert_encode_bar(sig, J, T, cfg, max_diffs):

@@ -818,3 +818,126 @@ def test_wide_screen_scores_are_within_the_margin(objective, kind, N):
             errs = [screen - k3, screen - k1]
         for err in errs:
             assert (err.abs() <= bound).all(), (N, kind, objective)
+
+
+# --- the refit's arithmetic (csrc/collect_refit.cuh), built for the host ------
+
+_REFIT_HOST_SRC = r"""
+#include "collect_refit.cuh"
+
+// codes (m, 3), ranges (m, n), bank (rows, n) -> m MATCH records, as
+// csrc/collect_refit.cu makes them for one file; -10 on a code past the bank
+extern "C" int host_collect_refit(const uint8_t* codes, const float* ranges,
+                                  const float* bank, long long m, int n, long long rows,
+                                  float s_clip, int mode, uint8_t* out) {
+  const float clip = s_clip < 0 ? -s_clip : s_clip;
+  for (long long i = 0; i < m; ++i) {
+    const uint8_t* cp = codes + 3 * i;
+    const uint32_t c = cp[0] | (uint32_t(cp[1]) << 8) | (uint32_t(cp[2]) << 16);
+    if (c == 0xFFFFFFu) {
+      fwav_refit::put_record(out + 17 * i, -1, 1.f, 0.f, 0, 0.f);
+      continue;
+    }
+    if (c >= rows) return -10;
+    const float* r = ranges + i * n;
+    const float* t = bank + static_cast<long long>(c) * n;
+    auto R = [&](int j) { return r[j]; };
+    auto T = [&](int j) { return t[j]; };
+    fwav_refit::Fit f;
+    switch (n) {
+      case 4: f = fwav_refit::refit<4>(R, T, n, clip, mode); break;
+      case 8: f = fwav_refit::refit<8>(R, T, n, clip, mode); break;
+      case 16: f = fwav_refit::refit<16>(R, T, n, clip, mode); break;
+      default: f = fwav_refit::refit<0>(R, T, n, clip, mode);
+    }
+    fwav_refit::put_record(out + 17 * i, int32_t(c), f.s, f.o, f.sym, f.err);
+  }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_refit(tmp_path_factory):
+    """csrc/collect_refit.cuh built for the host with g++ -ffp-contract=off
+    (every operation as written, as nvcc runs the header's intrinsics):
+    collect(codes, ranges, bank, s_clip, mode) -> MATCH records."""
+    import ctypes
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from fwav_tpu_torch.io.container import MATCH_DTYPE
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the refit's arithmetic for the host")
+    d = tmp_path_factory.mktemp("refit")
+    (d / "host.cpp").write_text(_REFIT_HOST_SRC)
+    csrc = Path(kernels.__file__).resolve().parent.parent / "csrc"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-I", str(csrc), "-o", str(d / "host.so"), str(d / "host.cpp")],
+                   check=True, capture_output=True, timeout=120)
+    lib = ctypes.CDLL(str(d / "host.so"))
+    p = ctypes.c_void_p
+    lib.host_collect_refit.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_longlong, ctypes.c_float, ctypes.c_int, p]
+
+    def collect(codes, ranges, bank, s_clip, mode):
+        codes, ranges, bank = (np.ascontiguousarray(a) for a in (codes, ranges, bank))
+        m, n = ranges.shape
+        out = np.empty(m, MATCH_DTYPE)
+        assert lib.host_collect_refit(codes.ctypes.data, ranges.ctypes.data,
+                                      bank.ctypes.data, m, n, len(bank), s_clip, mode,
+                                      out.ctypes.data) == 0
+        return out
+
+    return collect
+
+
+def _refit_case_files(case, n):
+    """Per file of a check case: its codes, its float32 ranges (the tail
+    reflect-padded) and its host bank."""
+    for b, (sig, bank) in enumerate(zip(case.signals, case.host_banks)):
+        m = -(-len(sig) // n)
+        ranges = np.pad(sig, (0, m * n - len(sig)), mode="reflect").reshape(m, n)
+        yield case.codes[b, :m], ranges, bank
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 5, 12, 17, 32, 64])
+def test_refit_arithmetic_equals_the_native_refit_in_one_variant(host_refit, n):
+    """The kernel's arithmetic, run on the host: on the self-check's case
+    exactly one variant gives the native refit's records (the host build's
+    fused or vectorized products: every other variant differs, in the
+    orientation of rows at the tie edge too, so the self-check cannot take
+    a wrong one), and that variant gives them byte for byte on two other
+    seeds of the case and on 20,000 random ranges against 5,000 rows at
+    s_clip 16."""
+    from fwav_tpu_torch.io import native
+    from fwav_tpu_torch.models import refit
+
+    case = refit.check_case(n)
+    want = refit.host_records(case, n, refit.CHECK_CLIP)
+    assert want is not None  # the native library is built (tests/native_libs.py)
+    matched, sym_differs = [], False
+    for mode in refit.MODES:
+        got = [host_refit(c, r, b, refit.CHECK_CLIP, mode) for c, r, b in
+               _refit_case_files(case, n)]
+        if all(g.tobytes() == w.tobytes() for g, w in zip(got, want)):
+            matched.append(mode)
+        else:
+            sym_differs |= any((g["sym"] != w["sym"]).any() for g, w in zip(got, want))
+    assert len(matched) == 1 and sym_differs, (matched, sym_differs)
+    mode = matched[0]
+    for seed in (1, 2):
+        other = refit.check_case(n, seed)
+        for (c, r, b), w in zip(_refit_case_files(other, n),
+                                refit.host_records(other, n, refit.CHECK_CLIP)):
+            assert host_refit(c, r, b, refit.CHECK_CLIP, mode).tobytes() == w.tobytes()
+    rng = np.random.default_rng(n)
+    ranges = rng.integers(-32767, 32768, (20000, n)).astype(np.float32)
+    bank = (rng.standard_normal((5000, n)) * 5000).astype(np.float32)
+    idx = rng.integers(0, 5000, 20000)
+    idx[rng.random(20000) < 0.1] = 0xFFFFFF
+    codes = np.stack([(idx >> s) & 0xFF for s in (0, 8, 16)], -1).astype(np.uint8)
+    assert (host_refit(codes, ranges, bank, 16.0, mode).tobytes()
+            == native.collect(codes, ranges, bank, 16.0).tobytes())
