@@ -1115,7 +1115,7 @@ def refit_kernel_checks(kernels, dev, checks):
     on the card alone (graph_ms), with its bytes bound (per range its code
     and record, per live range its samples and bank row, once); beside it
     the copy of its output into pinned host memory (CUDA events) and the
-    native refit it replaces (models/encode.py collect_idx_matches on the
+    native refit it replaces (models/refit.py collect_idx_matches on the
     float32 ranges and the host bank, host clock, median of 5)."""
     import numpy as np
     import torch
@@ -1148,7 +1148,7 @@ def refit_kernel_checks(kernels, dev, checks):
         walls = []
         for _ in range(5):
             t0 = time.perf_counter()
-            enc.collect_idx_matches(c3[:nr], nr, ranges, host_bank, cfg.s_clip)
+            refit.collect_idx_matches(c3[:nr], nr, ranges, host_bank, cfg.s_clip)
             walls.append((time.perf_counter() - t0) * 1e3)
         live = int((idx >= 0).sum())
         host = torch.empty(got.shape, dtype=torch.uint8, pin_memory=True)
@@ -2033,6 +2033,8 @@ def packed_phase(port, kernels, enc, smi):
     returns the launch counts of its three paths."""
     import torch
 
+    from fwav_tpu_torch.ops.domains import build_domains_host
+
     out = {}
     ten = packed_signals(10.0, PACK_FILES)
     cases = [("packed_balanced", ten + packed_signals(7.0, 1, seed0=99), {}, "search_scan", 2),
@@ -2087,7 +2089,7 @@ def packed_phase(port, kernels, enc, smi):
                      for sg in stack])[1]
         t0 = time.perf_counter()
         for sg in stack:
-            enc.build_domains_host(sg, cfg.tile_size, cfg.range_size, cfg.domain_step)
+            build_domains_host(sg, cfg.tile_size, cfg.range_size, cfg.domain_step)
         host_bank_s = time.perf_counter() - t0
         seconds = sum(len(sg) for sg in stack) / 44100
         out[phase] = launches

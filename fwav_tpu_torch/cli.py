@@ -6,7 +6,7 @@ flags, defaults, validation and exit codes: 0 on success, 1 if any file
 failed. Batch mode lists *.wav or *.fwav, skips outputs that exist
 (resume) and writes compression_metrics.json or
 decompression_metrics.json. Batch work fans out over a thread pool; the
-device programs of the threads take turns under models/encode.py's
+device programs of the threads take turns under models/program.py's
 DEVICE_LOCK.
 
 New here: --device {cuda,cpu} on compress, decompress and warmup, "cuda"

@@ -7,7 +7,7 @@
 // machine's host (PERF.md section 6). Where the stack's samples go to the
 // card as int16 (models/encode.py _as_i16_or_f32: every sample a whole
 // number within +-32767), this kernel builds the same bank there from the
-// samples the program already holds, and models/encode.py copies its rows
+// samples the program already holds, and models/refit.py copies its rows
 // back into pinned host memory.
 //
 // For file b of the stack, with bl = tile_size / range_size, row i < n_b

@@ -9,7 +9,7 @@
 // Where the stack's samples reach the card as int16, its bank is built
 // there (csrc/bank_means.cu), so every input of that pass is on the card
 // when the program ends: this kernel makes the records there, and
-// models/encode.py copies them back in place of the codes.
+// models/refit.py copies them back in place of the codes.
 //
 // For file b of the stack, range i < n_ranges[b] (one thread a range):
 // code c = codes[b, i] (3 bytes, little-endian); 0xFFFFFF gives the

@@ -20,7 +20,7 @@ from ..io.container import matches_to_struct
 from ..ops.affine import row_mean, row_sum
 from ..parallel.mesh import DP_AXIS, as_mesh, fetch_global
 from ..utils.buckets import bucket, pad_to
-from .encode import DEVICE_LOCK
+from .program import DEVICE_LOCK
 
 _DENOM_EPS = 1e-12
 

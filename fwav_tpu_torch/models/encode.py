@@ -4,17 +4,13 @@ The counterpart of fwav_tpu/models/encode.py's single-shot path
 (`compress_audio_arrays` -> `_compress_fast` -> the mode="raw" core).
 `encode_core` is that core in eager PyTorch: normalize, device VAD,
 ranges with the reflect-padded tail, then the search, then the sentinel
-mask and the 3-byte idx codes. Only the codes leave the device; the host
-half (`_finalize_encode`, `collect_idx_matches`, `prune_bank`), copied
-from the JAX package, refits s, o, err and the orientation against the
-serialized bank. That bank is built on the card where the samples are
-whole numbers (`bank_means` on the int16 samples the program holds, its
-rows copied back while the program runs), else on the host
-(`build_domains_host`): the same bits either way (`_bank_builds`). Where
-such a stack runs on one card (models/refit.py says when), its refit runs
-there too: `collect_refit` turns the codes into the records behind the
-program, and the records leave the device in place of the codes, the
-native refit's bits.
+mask and the 3-byte idx codes. A stack's host half, models/refit.py
+`HostHalf`, decides where its serialized bank is built (on the card from
+int16 samples, else on the host: the same bits either way) and where its
+codes become records with s, o, err and the orientation (the host refit
+copied from the JAX package, or `collect_refit` behind the program on one
+card, whose records leave the device in place of the codes: the native
+refit's bits). `prune_bank` drops the rows no record uses.
 
 The search takes the JAX package's kernel path (EncoderConfig.use_pallas
 there): "exact" is K1 over the whole bank; "coarse" with one lobe is K1
@@ -66,20 +62,14 @@ every later call of that key, every length of the bucket
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
 
 from ..config import EncoderConfig
-from ..io.container import MATCH_DTYPE
-from ..ops.affine import affine_stats, batched_affine_match, refit_host, row_mean
-from ..ops.domains import box_sums, build_bank, build_domains_host, n_domains_for
+from ..ops.affine import affine_stats, batched_affine_match, row_mean
+from ..ops.domains import box_sums, build_bank, n_domains_for
 from ..ops.kernels import (
-    BANK_BUILDS,
     PACKS,
-    REFITS,
-    bank_means,
     check_refine_lead,
     pallas_blocks_ok,
     refine_blocks_ok,
@@ -97,24 +87,14 @@ from ..ops.search import (
     topk_scores_block,
     topk_search_block,
 )
-from ..ops.vad import voiced_detection, voiced_mask
-from ..parallel.mesh import DP_AXIS, TP_AXIS, Mesh, as_mesh, fetch_global
+from ..ops.vad import voiced_mask
+from ..parallel.mesh import DP_AXIS, TP_AXIS, Mesh, as_mesh
 from ..utils.buckets import bucket, pad_to
 from ..utils.logging import device_banner
 from ..utils.trace import phase
-from .program import PROGRAMS
-from .refit import CardRecords, card_refit_mode
-from .refit import start as card_refit
+from .program import DEVICE_LOCK, PROGRAMS
+from .refit import IDX3_SENTINEL, HostHalf, _empty_result
 
-#: One card, one queue: the device programs of concurrent callers (the
-#: CLI's batch threads) run one at a time under this lock, as in the JAX
-#: package; host work (WAV I/O, bank builds, refits, containers) stays
-#: outside it. It also keeps the kernel wrappers' launch counters
-#: (ops/kernels.py LAUNCHES) exact under threads.
-DEVICE_LOCK = threading.Lock()
-
-#: The 3-byte little-endian idx code of a dead range (sentinel).
-IDX3_SENTINEL = 0xFFFFFF
 #: Largest whole-file bank (rows) whose global pass ships rows as 3-byte
 #: codes; beyond it both of its transfers are int32 with -1 for none. A
 #: module attribute, read at each call, so that a test can drive the int32
@@ -139,21 +119,6 @@ def unpack3(b3: torch.Tensor) -> torch.Tensor:
     b = b3.to(torch.int32)
     c = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
     return torch.where(c == IDX3_SENTINEL, -1, c)
-
-
-def pack3_np(rows: np.ndarray) -> np.ndarray:
-    """(m,) integer rows (< 0 = dead) -> (m, 3) uint8, host side."""
-    code = np.where(rows < 0, IDX3_SENTINEL, rows).astype(np.int64)
-    return np.stack(
-        [code & 0xFF, (code >> 8) & 0xFF, (code >> 16) & 0xFF], axis=1
-    ).astype(np.uint8)
-
-
-def unpack3_np(b3: np.ndarray) -> np.ndarray:
-    """(m, 3) uint8 -> (m,) int64 rows, -1 where the sentinel, host side."""
-    b3 = b3.astype(np.int64)
-    c = b3[:, 0] | (b3[:, 1] << 8) | (b3[:, 2] << 16)
-    return np.where(c == IDX3_SENTINEL, -1, c)
 
 
 def _pow2_divisor(n: int, cap: int) -> int:
@@ -736,37 +701,25 @@ def _mesh_program(mesh, front, lb: int, db: int, cfg: EncoderConfig):
     return out
 
 
-def _packed_cells(raw_np, meta_np, lb: int, db: int, cfg: EncoderConfig, mesh):
+def _packed_cells(x, meta_np, lb: int, db: int, cfg: EncoderConfig, mesh):
     """A packed stack over every cell of `mesh` (the JAX package's
     _packed_sharded_core): the file axis, padded with copies of the last
     file to a multiple of the cell count, splits into contiguous groups of
     whole files, one per cell in flat (dp, tp) order, each encoded by the
-    single-device program on its cell. meta_np is the stack's (B, 3) meta.
-    Returns {flat cell: (files, mb, 3) codes} of the cells this process
-    owns."""
-    B = raw_np.shape[0]
+    single-device program on its cell. x is the stack's (B, nb) samples on
+    the mesh's first local device, copied to each cell on another device;
+    meta_np its (B, 3) meta. Returns {flat cell: (files, mb, 3) codes} of
+    the cells this process owns."""
+    B = x.shape[0]
     per = -(-B // mesh.size)
     order = list(range(B)) + [B - 1] * (per * mesh.size - B)
     flat = mesh.devices.reshape(-1)
     out = {}
     for k in mesh.local_cells():
         sel = order[k * per : (k + 1) * per]
-        raw, meta = (raw_np, meta_np) if sel == list(range(B)) else (raw_np[sel], meta_np[sel])
-        out[k] = encode_core_packed(torch.from_numpy(raw).to(flat[k]), meta, lb, db, cfg)
+        raw, meta = (x, meta_np) if sel == list(range(B)) else (x[sel], meta_np[sel])
+        out[k] = encode_core_packed(raw.to(flat[k]), meta, lb, db, cfg)
     return out
-
-
-def _empty_result(cfg: EncoderConfig, original_len: int):
-    return (
-        np.empty(0, dtype=MATCH_DTYPE),
-        np.zeros((0, cfg.range_size), dtype=np.float32),
-        0,
-        cfg.range_size,
-        cfg.tile_size,
-        cfg.domain_step,
-        cfg.energy_thresh,
-        original_len,
-    )
 
 
 def _as_i16_or_f32(signal: np.ndarray):
@@ -824,92 +777,30 @@ def _prep_signal(signal: np.ndarray, cfg: EncoderConfig, dp: int = 1, tp: int = 
     return raw_p, n_ranges, n_domains, lb, db
 
 
-#: Side streams that copy banks built on a card to the host, one a device.
-_BANK_STREAMS: dict = {}
-
-
-def _host_zero_sign(bank: np.ndarray, signal: np.ndarray, block_len: int) -> np.ndarray:
-    """The one bit of build_domains_host that an integer build lacks: its
-    first mean is -0.0 where the first block's samples are all -0.0 (a
-    float64 sum of -0.0s stays -0.0, and -0.0 - 0.0 is -0.0)."""
-    head = signal[:block_len]
-    if len(bank) and not head.any() and np.signbit(head).all():
-        bank[0, 0] = -0.0
-    return bank
-
-
-def _bank_builds(raw, files, cfg: EncoderConfig, device):
-    """Starts the serialized banks of a stack (files as _encode_stack's)
-    and returns a function that waits for them, one C-contiguous float32
-    (n_domains, range_size) array a file, and the device bank (None for a
-    float stack). An int16 stack (every sample a whole number,
-    _as_i16_or_f32) takes `bank_means` on its samples `raw`
-    on `device` (moved there if they are not), enqueued here on the current
-    stream ahead of the program, and each file's rows are copied on a side
-    stream into pinned host memory while the program runs: the bits of
-    build_domains_host, whose float64 sums of whole numbers are exact. A
-    float stack takes build_domains_host, when the function is called.
-    Call under DEVICE_LOCK."""
-    n = cfg.range_size
-    if raw.dtype != torch.int16:
-        BANK_BUILDS["host"] += len(files)
-        return (lambda: [build_domains_host(f[0], cfg.tile_size, n, cfg.domain_step)
-                         for f in files]), None
-    n_domains = [f[3] for f in files]
-    bank = bank_means(raw.to(device), n_domains, cfg.tile_size, n, cfg.domain_step)
-    BANK_BUILDS["device"] += len(files)
-    done = None
-    if bank.device.type == "cuda":
-        side = _BANK_STREAMS.get(bank.device)
-        if side is None:
-            side = _BANK_STREAMS[bank.device] = torch.cuda.Stream(bank.device)
-        side.wait_stream(torch.cuda.current_stream(bank.device))
-        host = [torch.empty((d, n), dtype=torch.float32, pin_memory=True) for d in n_domains]
-        with torch.cuda.stream(side):
-            for b, h in enumerate(host):
-                h.copy_(bank[b, : len(h)], non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        bank.record_stream(side)
-    else:
-        host = [bank[b, :d] for b, d in enumerate(n_domains)]
-
-    def wait():
-        if done is not None:
-            done.synchronize()
-        return [_host_zero_sign(h.numpy(), f[0], cfg.tile_size // n)
-                for h, f in zip(host, files)]
-
-    return wait, bank
-
-
 def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
                   by_file: bool = False):
     """One stack of same-bucket files, each (signal, raw_p, n_ranges,
-    n_domains) of _prep_signal: the device program over `mesh`, the
-    idx-only transfer, the refit. The ranges of the stack split over
-    the cells (_mesh_program), or with `by_file` its files (_packed_cells);
-    on one card, where _captured says so, the program of its _core_key is
-    replayed instead (models/program.py), the counts in its `meta`.
-    The banks (_bank_builds) are built while the devices run (kernel
-    launches return at once): on the first local device ahead of the
-    program for an int16 stack, on the host for a float one. Where
-    models/refit.py card_refit_mode says so, `collect_refit` makes the
-    stack's records on the card behind the program, and one copy brings
-    them back; else one copy per cell brings the codes back for the host
-    refit. The enqueue of the whole program and the copies each hold
-    DEVICE_LOCK. Returns one result per file."""
+    n_domains) of _prep_signal: the device program over `mesh` and the
+    stack's host half (models/refit.py HostHalf). The stack's samples reach
+    the mesh's first local device once, where the bank build, the
+    program's front and a card refit read them. The ranges of the stack
+    split over the cells (_mesh_program), or with `by_file` its files
+    (_packed_cells); on one card, where _captured says so, the program of
+    its _core_key is replayed instead (models/program.py), the counts in
+    its `meta`. The enqueue of the whole program, the host half's start
+    before it and its card refit behind it hold DEVICE_LOCK. Returns one
+    result per file."""
     raw_np = np.stack([f[1] for f in files])
     n_domains = [f[3] for f in files]
     meta_np = _stack_counts([len(f[0]) for f in files], [f[2] for f in files], n_domains)
     _check_counts(cfg, lb, db, n_domains)
     dev0 = mesh.first_local_device()
+    captured = _captured(cfg, lb, db, mesh)
     # the JAX package's phases: "device" from the enqueue to the codes on
     # the host, "d2h" from the end of the enqueue, "host_bank" inside it
     with phase("device"):
         with DEVICE_LOCK:
-            mode = card_refit_mode(raw_np.dtype, cfg, mesh)
-            if _captured(cfg, lb, db, mesh):
+            if captured:
                 # one program per shape key, replayed (models/program.py)
                 key = _core_key(cfg, raw_np.shape[1], lb, db, "raw",
                                 raw_np.dtype == np.int16, dev0, len(files))
@@ -917,45 +808,23 @@ def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
                     key, dev0, (raw_np, meta_np),
                     lambda raw, meta: _program_raw(raw, meta, lb, db, cfg),
                 )
-                raw = run.inputs[0]
-                banks, bank = _bank_builds(raw, files, cfg, dev0)
-                stack_codes = run.launch()
-                codes = {0: stack_codes if by_file else stack_codes.transpose(0, 1)}
-            elif by_file:
-                raw = torch.from_numpy(raw_np)
-                if mode is not None:
-                    raw = raw.to(dev0)
-                banks, bank = _bank_builds(raw, files, cfg, dev0)
-                codes = _packed_cells(raw_np, meta_np, lb, db, cfg, mesh)
-                stack_codes = codes.get(0)
-            else:  # dp slabs along the range axis, gathered along axis 0
-                raw = torch.from_numpy(raw_np).to(dev0)
-                meta = torch.from_numpy(meta_np).to(raw.device)
-                banks, bank = _bank_builds(raw, files, cfg, dev0)
-                codes = _mesh_program(
-                    mesh, lambda d: _front_packed(raw.to(d), meta.to(d), lb, cfg),
-                    lb, db, cfg)
-                stack_codes = codes.get(0)
-                codes = {i: v.transpose(0, 1) for i, v in codes.items()}
-            if mode is not None:  # a one-cell mesh: codes {0: (B, rb, 3)}
-                records = card_refit(stack_codes, raw, bank, files, cfg, mode)
-        with phase("d2h"):
-            with phase("host_bank"):
-                banks = banks()
-            if mode is not None:
-                c = records()
+                x = run.inputs[0]
             else:
-                with DEVICE_LOCK:
-                    c = fetch_global(codes, mesh)
-                if not by_file:
-                    c = c.transpose(1, 0, 2)
-                c = [cj[: f[2]] for cj, f in zip(c, files)]
-    REFITS["host" if mode is None else "device"] += len(files)
-    out = []
-    for j, (signal, _, n_ranges, n_domains) in enumerate(files):
-        assert len(banks[j]) == n_domains
-        out.append(_finalize_encode(c[j], signal, cfg, n_ranges, len(signal), banks[j]))
-    return out
+                x = torch.from_numpy(raw_np).to(dev0)
+                if not by_file:  # ahead of any launch: a copy from the host waits for the stream
+                    meta = torch.from_numpy(meta_np).to(dev0)
+            half = HostHalf(x, files, cfg, mesh)  # the bank enqueued ahead of the program
+            if captured:
+                half.take({0: run.launch()})
+            elif by_file:
+                half.take(_packed_cells(x, meta_np, lb, db, cfg, mesh))
+            else:  # dp slabs along the range axis
+                half.take(_mesh_program(
+                    mesh, lambda d: _front_packed(x.to(d), meta.to(d), lb, cfg), lb, db, cfg),
+                    axis=1)
+        with phase("d2h"):
+            half.fetch()
+    return half.results()
 
 
 def _compress_fast(signal: np.ndarray, cfg: EncoderConfig, mesh: Mesh):
@@ -967,92 +836,6 @@ def _compress_fast(signal: np.ndarray, cfg: EncoderConfig, mesh: Mesh):
         return _empty_result(cfg, len(signal))
     raw_p, n_ranges, n_domains, lb, db = prep
     return _encode_stack([(signal, raw_p, n_ranges, n_domains)], lb, db, cfg, mesh)[0]
-
-
-def _finalize_encode(c, signal, cfg, n_ranges, original_len, bank):
-    """Host half of the idx-only protocol: sentinel classification and the
-    exact refit of the device's selections against the serialized bank
-    (copied from the JAX package). `c` is the file's 3-byte codes, or where
-    the card refit them (models/refit.py) its CardRecords, whose records
-    only need checking here."""
-    range_size = cfg.range_size
-    pad_len = (range_size - (original_len % range_size)) % range_size
-    card = isinstance(c, CardRecords)
-    silent = c.live == 0 if card else bool(np.all(c == 0xFF))  # every code 0xFFFFFF
-    if cfg.fast_mode and silent:
-        # all pruned: an all-silent file gives the empty container
-        with phase("vad"):
-            voiced = voiced_detection(
-                signal, frame_size=range_size * 2, energy_threshold=cfg.energy_thresh,
-            )
-        if float(np.sum((signal * voiced).astype(np.float64) ** 2)) < 1e-8:
-            return _empty_result(cfg, original_len)
-        ranges_host = None
-    elif card:
-        ranges_host = None
-    elif cfg.fast_mode:
-        # every live range is fully voiced, so the raw ranges are its refit
-        # targets (the reflected tail's sources are voiced whenever the
-        # tail is live)
-        padded = np.pad(signal, (0, pad_len), mode="reflect") if pad_len else signal
-        ranges_host = padded.reshape(n_ranges, range_size)
-    else:
-        with phase("vad"):
-            voiced = voiced_detection(
-                signal, frame_size=range_size * 2, energy_threshold=cfg.energy_thresh,
-            )
-            weighted = signal * voiced
-        if float(np.sum(weighted.astype(np.float64) ** 2)) < 1e-8:
-            return _empty_result(cfg, original_len)
-        if pad_len:
-            weighted = np.pad(weighted, (0, pad_len), mode="reflect")
-        ranges_host = weighted.reshape(n_ranges, range_size)
-
-    with phase("refit"):
-        if card:
-            if c.bad:
-                raise IndexError("collect: domain index out of range for the bank")
-            rec = c.rec
-        else:
-            rec = collect_idx_matches(c, n_ranges, ranges_host, bank, cfg.s_clip)
-    return (
-        rec, bank, n_ranges, range_size, cfg.tile_size, cfg.domain_step,
-        cfg.energy_thresh, original_len,
-    )
-
-
-def collect_idx_matches(codes, n_ranges: int, ranges, bank, s_clip: float):
-    """3-byte codes -> MATCH_DTYPE records: sentinels become
-    (-1, 1, 0, 0, 0); live rows are refit on the host (refit_host, or the
-    native kernel that runs the same rule)."""
-    b3 = np.ascontiguousarray(codes[:n_ranges])
-    if ranges is not None:
-        from ..io import native
-
-        rec = native.collect(
-            b3, np.ascontiguousarray(ranges, dtype=np.float32), bank, s_clip
-        )
-        if rec is not None:
-            return rec
-
-    c = unpack3_np(b3)
-    dead = c < 0
-    rec = np.empty(n_ranges, dtype=MATCH_DTYPE)
-    if ranges is None or bool(np.all(dead)):
-        rec["idx"] = -1
-        rec["s"] = 1.0
-        rec["o"] = 0.0
-        rec["sym"] = 0
-        rec["err"] = 0.0
-        return rec
-    idx = np.where(dead, 0, c).astype(np.int32)
-    s, o, err, sym = refit_host(ranges, bank, idx, s_clip)
-    rec["idx"] = np.where(dead, -1, idx)
-    rec["s"] = np.where(dead, np.float32(1.0), s)
-    rec["o"] = np.where(dead, np.float32(0.0), o)
-    rec["sym"] = np.where(dead, False, sym).astype(np.uint8)
-    rec["err"] = np.where(dead, np.float32(0.0), err)
-    return rec
 
 
 @phase("prune")

@@ -29,7 +29,7 @@ itself: a program keeps the counts its warm-up made (the capture's own
 calls are not counted, since they launch nothing) and adds them at each
 replay, so that a call counts what the eager program counts.
 
-Callers hold models/encode.py DEVICE_LOCK from `load` through `launch`:
+Callers hold DEVICE_LOCK (below) from `load` through `launch`:
 `launch` copies the graph's output into a fresh tensor on the stream
 before it returns, so that another thread's replay of the same key cannot
 overwrite codes not yet fetched; `fill` waits for the last copy out of the
@@ -53,11 +53,19 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import threading
 import time
 
 import torch
 
 from ..ops import kernels
+
+#: One card, one queue: the device programs of concurrent callers (the
+#: CLI's batch threads) run one at a time under this lock, as in the JAX
+#: package; host work (WAV I/O, bank builds, refits, containers) stays
+#: outside it. It also keeps the kernel wrappers' launch counters
+#: (ops/kernels.py LAUNCHES) exact under threads.
+DEVICE_LOCK = threading.Lock()
 
 #: Programs kept: one per shape key (bucket, config, mode, device, files
 #: per stack), the least recently used evicted past this count. A CLI

@@ -1,22 +1,33 @@
-"""The host refit on the card: where models/encode.py _encode_stack hands a
-stack's codes to `collect_refit` (ops/kernels.py, csrc/collect_refit.cu),
-and the self-check that lets it.
+"""A stack's host half: where its bank is built, where its codes become
+records, and how the records come back; the stream's refits; and the
+self-check that lets a stack's refit run on the card.
 
-A stack's codes are refit on the card where everything the host refit
-reads is there when the program ends:
+models/encode.py _encode_stack runs a stack's device program and leaves the
+rest to a `HostHalf`, made under DEVICE_LOCK before the program is enqueued
+with the stack's samples on the mesh's first local device, which decides
+both places from what it observes:
 
-- its samples reach the card as int16 (their bank is `bank_means`' on the
-  card, models/encode.py _bank_builds);
-- the mesh is one cell, a CUDA device of this process (the captured
-  program, or a one-device _mesh_program / _packed_cells);
-- `cfg.fast_mode`: the raw ranges are the refit's targets (the VAD-weighted
-  ranges of fast_mode=False are made on the host).
+- the bank: an int16 stack (every sample a whole number, encode.py
+  _as_i16_or_f32) takes `bank_means` on those samples, enqueued at once
+  ahead of the program, and each file's rows are copied into pinned host
+  memory on a side stream while the program runs: the bits of
+  build_domains_host, whose float64 sums of whole numbers are exact (the
+  host's -0.0 first mean restored, _host_zero_sign). A float stack takes
+  build_domains_host on the host while the devices run.
+- the refit: on the card (`card_refit_mode`) where everything the host
+  refit reads is there when the program ends: the samples are int16 (their
+  bank is `bank_means`' on the card); the mesh is one cell, a CUDA device
+  of this process (the captured program, or a one-device _mesh_program /
+  _packed_cells); `cfg.fast_mode` (the VAD-weighted ranges of
+  fast_mode=False are made on the host). `HostHalf.take` then launches
+  `collect_refit` (ops/kernels.py, csrc/collect_refit.cu) on the program's
+  codes behind it, and one copy brings the records back in place of the
+  codes. Every other stack's codes come back, one copy per cell, and are
+  refit on the host (collect_idx_matches, the native fwav_collect).
 
-Such a stack is always refit on the card, in the arithmetic variant of the
-self-check (`refit_mode`), which raises where no variant gives the host's
-bits. Every other stack keeps the host refit (collect_idx_matches, the
-native fwav_collect), and so does the stream (models/stream.py
-refit_host).
+The stream's shards and its global pass refit on the host (refit_shard,
+refit_rows: numpy refit_host against bank rows rebuilt from the signal, as
+in the JAX package's stream).
 
 The self-check: `g++ -O3 -march=native`, which builds the native refit,
 fuses a product into the sum that takes it on a host with FMA, and
@@ -44,8 +55,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..io.container import MATCH_DTYPE
 from ..ops import kernels
+from ..ops.affine import refit_host
+from ..ops.domains import bank_rows_host, build_domains_host
+from ..ops.vad import voiced_detection
+from ..parallel.mesh import fetch_global
+from ..utils.trace import phase
+from .program import DEVICE_LOCK
 
+#: The 3-byte little-endian idx code of a dead range (sentinel).
+IDX3_SENTINEL = 0xFFFFFF
 #: The variants the self-check tries, in order: the native build's on an
 #: FMA host at range sizes 4, 8, 16 (every product fused), then at the
 #: others (the vectorized loop's rounding).
@@ -55,15 +75,8 @@ CHECK_CLIP = 2.0
 
 _modes: dict = {}
 _lock = threading.Lock()
-
-
-class CardRecords(NamedTuple):
-    """One file's records refit on the card (a view into the stack's pinned
-    copy), its live records and its codes at or past its bank's rows."""
-
-    rec: np.ndarray
-    live: int
-    bad: int
+#: Side streams that copy banks built on a card to the host, one a device.
+_BANK_STREAMS: dict = {}
 
 
 def card_refit_mode(dtype, cfg, mesh) -> int | None:
@@ -88,33 +101,255 @@ def refit_mode(device, range_size: int) -> int:
         return _modes[key]
 
 
-def start(codes, x, bank, files, cfg, mode: int):
-    """Launch `collect_refit` on a stack (codes (B, rb, 3), its int16
-    samples x and device bank; files as _encode_stack's) on the current
-    stream and copy its output into pinned host memory behind it (CPU
-    tensors: the plain version, no copy). Returns a function that waits for
-    the copy and gives one CardRecords a file."""
-    lengths = [len(f[0]) for f in files]
-    n_domains = [f[3] for f in files]
-    out = kernels.collect_refit(codes, x, bank, lengths, n_domains, cfg.range_size,
-                                cfg.s_clip, mode)
-    host, done = out, None
-    keep = (codes, x, bank, out)  # alive until the copy is done, whatever stream frees them
-    if out.device.type == "cuda":
-        host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(out.device))
+class HostHalf:
+    """The host half of one stack of files (signal, raw_p, n_ranges,
+    n_domains), as models/encode.py _encode_stack gives them. Made under
+    DEVICE_LOCK before the stack's program is enqueued, with x (B, nb) its
+    samples on the mesh's first local device: takes the refit's place
+    (`mode`, None for the host) and starts the bank. Then `take` (the
+    program's codes, under DEVICE_LOCK), `fetch` (in phase d2h) and
+    `results`."""
 
-    def wait():
-        nonlocal keep
-        if done is not None:
-            done.synchronize()
-        keep = None
-        return [CardRecords(*part)
-                for part in kernels.split_records(host.numpy(), [f[2] for f in files])]
+    def __init__(self, x, files, cfg, mesh):
+        self.files, self.cfg, self.mesh, self.x = files, cfg, mesh, x
+        self.mode = card_refit_mode(files[0][1].dtype, cfg, mesh)
+        self.bank = self._host_banks = self._done = None
+        if x.dtype != torch.int16:
+            kernels.BANK_BUILDS["host"] += len(files)
+            return
+        n, n_domains = cfg.range_size, [f[3] for f in files]
+        bank = self.bank = kernels.bank_means(x, n_domains, cfg.tile_size, n, cfg.domain_step)
+        kernels.BANK_BUILDS["device"] += len(files)
+        if bank.device.type != "cuda":
+            self._host_banks = [bank[b, :d] for b, d in enumerate(n_domains)]
+            return
+        side = _BANK_STREAMS.get(bank.device)
+        if side is None:
+            side = _BANK_STREAMS[bank.device] = torch.cuda.Stream(bank.device)
+        side.wait_stream(torch.cuda.current_stream(bank.device))
+        self._host_banks = [torch.empty((d, n), dtype=torch.float32, pin_memory=True)
+                            for d in n_domains]
+        with torch.cuda.stream(side):
+            for b, h in enumerate(self._host_banks):
+                h.copy_(bank[b, : len(h)], non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record(side)
+        bank.record_stream(side)
 
-    return wait
+    def take(self, codes: dict, axis: int = 0) -> None:
+        """The program's codes, {position: (files, ranges, 3) uint8} whose
+        parts join along `axis` (0: files, 1: ranges). Where the card
+        refits (a one-cell mesh, so codes[0] is the whole stack), launches
+        collect_refit on them, the samples and the bank on the current
+        stream, and copies its output into pinned host memory behind it (a
+        CPU tensor: the plain version, no copy). Call under DEVICE_LOCK."""
+        self.codes, self.axis = codes, axis
+        if self.mode is None:
+            return
+        files, cfg = self.files, self.cfg
+        out = kernels.collect_refit(codes[0], self.x, self.bank, [len(f[0]) for f in files],
+                                    [f[3] for f in files], cfg.range_size, cfg.s_clip, self.mode)
+        self.out, self.records, self.copied = out, out, None
+        if out.device.type == "cuda":
+            self.records = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+            self.records.copy_(out, non_blocking=True)
+            self.copied = torch.cuda.Event()
+            self.copied.record(torch.cuda.current_stream(out.device))
+
+    def fetch(self) -> None:
+        """The banks, one C-contiguous float32 (n_domains, range_size) array
+        a file (phase host_bank), then the records from the card, or the
+        codes (fetch_global under DEVICE_LOCK) for the host refit. Drops
+        the stack's device tensors."""
+        files, cfg = self.files, self.cfg
+        with phase("host_bank"):
+            if self._host_banks is None:
+                self.banks = [build_domains_host(f[0], cfg.tile_size, cfg.range_size,
+                                                 cfg.domain_step) for f in files]
+            else:
+                if self._done is not None:
+                    self._done.synchronize()
+                self.banks = [_host_zero_sign(h.numpy(), f[0], cfg.tile_size // cfg.range_size)
+                              for h, f in zip(self._host_banks, files)]
+        if self.mode is not None:
+            if self.copied is not None:
+                self.copied.synchronize()
+            self.found = kernels.split_records(self.records.numpy(), [f[2] for f in files])
+        else:
+            codes = self.codes
+            if self.axis:
+                codes = {k: v.transpose(0, 1) for k, v in codes.items()}
+            with DEVICE_LOCK:
+                c = fetch_global(codes, self.mesh)
+            if self.axis:
+                c = c.transpose(1, 0, 2)
+            self.found = [cj[: f[2]] for cj, f in zip(c, files)]
+        self.x = self.bank = self.codes = self.out = None
+        kernels.REFITS["host" if self.mode is None else "device"] += len(files)
+
+    def results(self) -> list:
+        """One compress_audio_arrays 8-tuple a file, after `fetch` and
+        outside DEVICE_LOCK: the card's records checked (_card_result), or
+        the codes refit on the host (_host_result)."""
+        finish = _host_result if self.mode is None else _card_result
+        out = []
+        for found, (signal, _, n_ranges, n_domains), bank in zip(self.found, self.files,
+                                                                 self.banks):
+            assert len(bank) == n_domains
+            out.append(finish(found, signal, self.cfg, n_ranges, bank))
+        return out
+
+
+def _host_zero_sign(bank: np.ndarray, signal: np.ndarray, block_len: int) -> np.ndarray:
+    """The one bit of build_domains_host that an integer build lacks: its
+    first mean is -0.0 where the first block's samples are all -0.0 (a
+    float64 sum of -0.0s stays -0.0, and -0.0 - 0.0 is -0.0)."""
+    head = signal[:block_len]
+    if len(bank) and not head.any() and np.signbit(head).all():
+        bank[0, 0] = -0.0
+    return bank
+
+
+def _result(rec, bank, n_ranges: int, cfg, original_len: int):
+    return (rec, bank, n_ranges, cfg.range_size, cfg.tile_size, cfg.domain_step,
+            cfg.energy_thresh, original_len)
+
+
+def _empty_result(cfg, original_len: int):
+    return _result(np.empty(0, dtype=MATCH_DTYPE),
+                   np.zeros((0, cfg.range_size), dtype=np.float32), 0, cfg, original_len)
+
+
+def _voiced(signal, cfg):
+    """The signal weighted by its host VAD (phase vad), or None where that
+    leaves no energy: the file gives the empty result."""
+    with phase("vad"):
+        weighted = signal * voiced_detection(signal, frame_size=cfg.range_size * 2,
+                                             energy_threshold=cfg.energy_thresh)
+    return None if float(np.sum(weighted.astype(np.float64) ** 2)) < 1e-8 else weighted
+
+
+def _card_result(found, signal, cfg, n_ranges: int, bank):
+    """A file whose records the card made, `found` (records, live, bad) of
+    kernels.split_records; fast_mode holds. An all-sentinel file whose
+    host VAD leaves no energy gives the empty result; a code at or past its
+    bank's rows raises the native refit's IndexError."""
+    rec, live, bad = found
+    if live == 0 and _voiced(signal, cfg) is None:
+        return _empty_result(cfg, len(signal))
+    with phase("refit"):
+        if bad:
+            raise IndexError("collect: domain index out of range for the bank")
+    return _result(rec, bank, n_ranges, cfg, len(signal))
+
+
+def _host_result(codes, signal, cfg, n_ranges: int, bank):
+    """Host half of the idx-only protocol (copied from the JAX package): a
+    file's 3-byte codes, sentinel classification and the exact refit of
+    the device's selections against the serialized bank."""
+    n = cfg.range_size
+    pad_len = -len(signal) % n
+    if cfg.fast_mode and bool(np.all(codes == 0xFF)):  # every code 0xFFFFFF
+        # all pruned: an all-silent file gives the empty container
+        if _voiced(signal, cfg) is None:
+            return _empty_result(cfg, len(signal))
+        ranges = None
+    else:
+        # under fast_mode every live range is fully voiced, so the raw
+        # ranges are its refit targets (the reflected tail's sources are
+        # voiced whenever the tail is live)
+        target = signal if cfg.fast_mode else _voiced(signal, cfg)
+        if target is None:
+            return _empty_result(cfg, len(signal))
+        if pad_len:
+            target = np.pad(target, (0, pad_len), mode="reflect")
+        ranges = target.reshape(n_ranges, n)
+    with phase("refit"):
+        rec = collect_idx_matches(codes, n_ranges, ranges, bank, cfg.s_clip)
+    return _result(rec, bank, n_ranges, cfg, len(signal))
+
+
+def sentinel_records(m: int) -> np.ndarray:
+    """m dead records: (-1, 1, 0, 0, 0)."""
+    rec = np.empty(m, dtype=MATCH_DTYPE)
+    rec["idx"] = -1
+    rec["s"] = 1.0
+    rec["o"] = 0.0
+    rec["sym"] = 0
+    rec["err"] = 0.0
+    return rec
+
+
+def collect_idx_matches(codes, n_ranges: int, ranges, bank, s_clip: float):
+    """3-byte codes -> MATCH_DTYPE records: sentinels become
+    (-1, 1, 0, 0, 0); live rows are refit on the host (refit_host, or the
+    native kernel that runs the same rule)."""
+    b3 = np.ascontiguousarray(codes[:n_ranges])
+    if ranges is not None:
+        from ..io import native
+
+        rec = native.collect(
+            b3, np.ascontiguousarray(ranges, dtype=np.float32), bank, s_clip
+        )
+        if rec is not None:
+            return rec
+
+    c = unpack3_np(b3)
+    dead = c < 0
+    if ranges is None or bool(np.all(dead)):
+        return sentinel_records(n_ranges)
+    rec = np.empty(n_ranges, dtype=MATCH_DTYPE)
+    idx = np.where(dead, 0, c).astype(np.int32)
+    s, o, err, sym = refit_host(ranges, bank, idx, s_clip)
+    rec["idx"] = np.where(dead, -1, idx)
+    rec["s"] = np.where(dead, np.float32(1.0), s)
+    rec["o"] = np.where(dead, np.float32(0.0), o)
+    rec["sym"] = np.where(dead, False, sym).astype(np.uint8)
+    rec["err"] = np.where(dead, np.float32(0.0), err)
+    return rec
+
+
+def refit_shard(b3, signal, ranges, row_base, cfg):
+    """One stream shard's records from its 3-byte codes: window-local rows
+    plus row_base are whole-file rows, refit on the host (refit_rows)."""
+    c = unpack3_np(b3)
+    rec = sentinel_records(len(b3))
+    live = c >= 0
+    if live.any():
+        refit_rows(rec, live, c[live] + row_base, ranges[live], signal, cfg)
+    return rec
+
+
+def refit_rows(rec, live, rows, ranges, signal, cfg):
+    """Store into rec[live] the whole-file bank rows `rows` and their
+    host refit against `ranges`: exactly those rows of the serialized bank
+    are rebuilt from the raw signal (bank_rows_host), as the writers
+    serialize them."""
+    tiles = bank_rows_host(signal, cfg.tile_size, cfg.range_size, cfg.domain_step,
+                           rows.astype(np.int64))
+    s, o, err, sym = refit_host(
+        np.ascontiguousarray(ranges), tiles, np.arange(len(rows), dtype=np.int32), cfg.s_clip,
+    )
+    rec["idx"][live] = rows
+    rec["s"][live] = s
+    rec["o"][live] = o
+    rec["sym"][live] = sym
+    rec["err"][live] = err
+
+
+def pack3_np(rows: np.ndarray) -> np.ndarray:
+    """(m,) integer rows (< 0 = dead) -> (m, 3) uint8, host side."""
+    code = np.where(rows < 0, IDX3_SENTINEL, rows).astype(np.int64)
+    return np.stack(
+        [code & 0xFF, (code >> 8) & 0xFF, (code >> 16) & 0xFF], axis=1
+    ).astype(np.uint8)
+
+
+def unpack3_np(b3: np.ndarray) -> np.ndarray:
+    """(m, 3) uint8 -> (m,) int64 rows, -1 where the sentinel, host side."""
+    b3 = b3.astype(np.int64)
+    c = b3[:, 0] | (b3[:, 1] << 8) | (b3[:, 2] << 16)
+    return np.where(c == IDX3_SENTINEL, -1, c)
 
 
 class CheckCase(NamedTuple):
@@ -232,7 +467,7 @@ def check_case(n: int, seed: int = 0) -> CheckCase:
 
 def host_records(case: CheckCase, n: int, s_clip: float) -> list | None:
     """The host path's records of a check case (the native refit of
-    models/encode.py collect_idx_matches on the float32 samples,
+    collect_idx_matches on the float32 samples,
     reflect-padded, against the host banks), or None where the native
     library is missing."""
     from ..io import native

@@ -8,7 +8,7 @@ whatever the duration. The VAD runs once on the host over the whole file
 (its hysteresis carries from t = 0) and rides to the device as packed
 bits beside the raw window (int16 when the content is 16-bit-exact); only
 3 bytes per range come back, and the host refits s, o, err and the
-orientation against the serialized bank rows.
+orientation against the serialized bank rows (models/refit.py refit_shard).
 
 Every shard runs one device program (models/encode.py `_mesh_program`
 with the masked front, `_front_masked`) at one shape bucket planned once
@@ -53,7 +53,6 @@ import torch
 
 from ..config import EncoderConfig
 from ..io.container import MATCH_DTYPE
-from ..ops.affine import refit_host
 from ..ops.domains import bank_rows_host, n_domains_for
 from ..ops.vad import voiced_detection
 from ..parallel.mesh import Mesh, as_mesh, fetch_global
@@ -61,21 +60,25 @@ from ..utils.buckets import bucket, pad_to
 from ..utils.logging import logger
 from ..utils.trace import phase
 from . import encode
-from .program import PROGRAMS
+from .program import DEVICE_LOCK, PROGRAMS
 from .encode import (
-    DEVICE_LOCK,
     _as_i16_or_f32,
     _captured,
     _check_counts,
     _core_key,
-    _empty_result,
     _front_masked,
     _mesh_dims,
     _mesh_program,
     _range_split_factor,
     encode_core_global,
-    pack3_np,
     remap_matches,
+)
+from .refit import (
+    _empty_result,
+    pack3_np,
+    refit_rows,
+    refit_shard,
+    sentinel_records,
     unpack3_np,
 )
 
@@ -223,7 +226,7 @@ def _global_pass(rec, signal, weighted, raw_src, voiced_p, cfg, original_len,
         logger.info("Global-candidate pass: %d/%d ranges improved",
                     int(imp.sum()), int((rec["idx"] >= 0).sum()))
         if imp.any():
-            _refit_rows(rec, imp, winners[imp], weighted.reshape(-1, n)[imp], signal, cfg)
+            refit_rows(rec, imp, winners[imp], weighted.reshape(-1, n)[imp], signal, cfg)
         timer.lap("refit_ms")
     if stats is not None:
         stats["global_pass"] = times
@@ -381,11 +384,7 @@ def compress_audio_streaming(
         # domain neighborhood: windows starting in [g0, g0 + lenw)
         g0, m, n_dom_w, lenw, off = geo[k]
         if n_dom_w == 0:
-            # a shard past the end of the usable signal: sentinels
-            rec = np.zeros(m, dtype=MATCH_DTYPE)
-            rec["idx"] = -1
-            rec["s"] = 1.0
-            slots[k] = rec
+            slots[k] = sentinel_records(m)  # a shard past the end of the usable signal
             continue
         if n_dom_w >= 1 << 24:
             raise ValueError(
@@ -420,8 +419,8 @@ def compress_audio_streaming(
             timer.lap("wait_ms")
         with timer.phase("host_refit"):
             timer.span()
-            slots[k] = rec = _refit_shard(b3, signal, weighted[a:b].reshape(m, n), g0 // step,
-                                          cfg)
+            slots[k] = rec = refit_shard(b3, signal, weighted[a:b].reshape(m, n), g0 // step,
+                                         cfg)
             timer.lap("refit_ms")
         if resume_dir:
             # write-to-temp + atomic rename: a kill mid-save never leaves a
@@ -448,39 +447,6 @@ def compress_audio_streaming(
         rec = _global_pass(rec, signal, weighted, raw_src, voiced_p, cfg,
                            original_len, dev, stats)
     return (rec, None, n_ranges, n, tile, step, cfg.energy_thresh, original_len)
-
-
-def _refit_shard(b3, signal, ranges, row_base, cfg):
-    """One shard's records from its 3-byte codes: window-local rows plus
-    row_base are whole-file rows, refit on the host (_refit_rows)."""
-    c = unpack3_np(b3)
-    rec = np.empty(len(b3), dtype=MATCH_DTYPE)
-    rec["idx"] = -1
-    rec["s"] = 1.0
-    rec["o"] = 0.0
-    rec["sym"] = 0
-    rec["err"] = 0.0
-    live = c >= 0
-    if live.any():
-        _refit_rows(rec, live, c[live] + row_base, ranges[live], signal, cfg)
-    return rec
-
-
-def _refit_rows(rec, live, rows, ranges, signal, cfg):
-    """Store into rec[live] the whole-file bank rows `rows` and their
-    host refit against `ranges`: exactly those rows of the serialized bank
-    are rebuilt from the raw signal (bank_rows_host), as the writers
-    serialize them."""
-    tiles = bank_rows_host(signal, cfg.tile_size, cfg.range_size, cfg.domain_step,
-                           rows.astype(np.int64))
-    s, o, err, sym = refit_host(
-        np.ascontiguousarray(ranges), tiles, np.arange(len(rows), dtype=np.int32), cfg.s_clip,
-    )
-    rec["idx"][live] = rows
-    rec["s"][live] = s
-    rec["o"][live] = o
-    rec["sym"][live] = sym
-    rec["err"][live] = err
 
 
 @phase("prune")

@@ -35,7 +35,7 @@ and one kernel with no Pallas counterpart:
   reach the card as int16: the same bits, from exact integer block sums.
   CUDA source: csrc/bank_means.cu.
 - `collect_refit` replaces the host refit of a stack's codes
-  (models/encode.py collect_idx_matches, the native fwav_collect; the JAX
+  (models/refit.py collect_idx_matches, the native fwav_collect; the JAX
   package's collect_idx_matches in fwav_tpu/models/encode.py) where the
   stack's samples and bank are on the card: the packed MATCH records, the
   bits of the native refit on the same host (the arithmetic variant that
@@ -88,14 +88,15 @@ LAUNCHES = {"search_scan": 0, "topc_scan": 0, "refine_window": 0, "window_stats"
             "search_scan_wide": 0, "topc_scan_wide": 0, "staged_refine": 0,
             "staged_stats": 0, "bank_means": 0, "collect_refit": 0}
 #: Serialized banks made since the last reset, one a file, by their source
-#: (models/encode.py _encode_stack): "device", `bank_means` on an int16
+#: (models/refit.py HostHalf): "device", `bank_means` on an int16
 #: stack (the kernel, or on a CPU tensor its plain version); "host",
 #: ops/domains.py build_domains_host on a float stack.
 BANK_BUILDS = {"device": 0, "host": 0}
-#: Files whose codes models/encode.py _encode_stack refit since the last
-#: reset, by where: "device", `collect_refit` on the card (models/refit.py
-#: says when); "host", collect_idx_matches (the native fwav_collect). The
-#: stream's refits (models/stream.py refit_host) are not counted.
+#: Files of single-shot and packed stacks whose codes were refit since the
+#: last reset (models/refit.py HostHalf), by where: "device", `collect_refit`
+#: on the card (card_refit_mode says when); "host", collect_idx_matches (the
+#: native fwav_collect). The stream's refits (refit_shard, refit_rows) are
+#: not counted.
 REFITS = {"device": 0, "host": 0}
 #: The packing of compress_audio_packed since the last reset
 #: (models/encode.py): per call 1 to "calls" and its signals to "clips";
@@ -1175,7 +1176,7 @@ def collect_refit_ref(codes, x, bank, lengths, n_domains, range_size: int, s_cli
     """Plain version of `collect_refit`: each file's ranges as the host
     path makes them (its samples as float32, the tail reflect-padded) and
     its bank rows through the native fwav_collect (io/native.py collect,
-    which models/encode.py collect_idx_matches runs); a range whose code is
+    which models/refit.py collect_idx_matches runs); a range whose code is
     at or past the file's rows is counted as bad and given the sentinel
     record. Raises where the native library is missing: the numpy refit
     does not give its bits."""

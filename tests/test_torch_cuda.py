@@ -1323,8 +1323,6 @@ def test_collect_refit_flags_codes_past_the_bank(dev):
     """A code at or past its file's domain count: counted as bad, its
     record the sentinel, the other records refit; the encode's host half
     raises the native refit's IndexError for it."""
-    from fwav_tpu_torch.models import encode as enc
-
     case = refit.check_case(4, 5)
     codes = case.codes.copy()
     nd = case.n_domains[1]
@@ -1338,8 +1336,7 @@ def test_collect_refit_flags_codes_past_the_bank(dev):
     cfg = port.EncoderConfig()
     sig = case.signals[1]
     with pytest.raises(IndexError, match="out of range"):
-        enc._finalize_encode(refit.CardRecords(*parts[1]), sig, cfg, len(parts[1][0]),
-                             len(sig), case.host_banks[1])
+        refit._card_result(parts[1], sig, cfg, len(parts[1][0]), case.host_banks[1])
 
 
 def test_collect_refit_stack_of_16_equals_its_single_launches(dev):

@@ -37,6 +37,7 @@ from fwav_tpu_torch.config import EncoderConfig
 from fwav_tpu_torch.models import encode as port_encode
 from fwav_tpu_torch.models import refit
 from fwav_tpu_torch.ops import kernels
+from fwav_tpu_torch.ops.domains import build_domains_host
 from fwav_tpu_torch.parallel import Mesh, compress_audio_sharded
 from fwav_tpu_torch.utils.trace import collect_phases
 from native_libs import ensure_native_libraries
@@ -306,7 +307,7 @@ def test_float_samples_build_the_bank_on_the_host(speechlike):
     assert kernels.BANK_BUILDS == {"device": 0, "host": 1}
     np.testing.assert_array_equal(
         res[1].view(np.uint32),
-        port_encode.build_domains_host(sig, 1024, 4, 1).view(np.uint32))
+        build_domains_host(sig, 1024, 4, 1).view(np.uint32))
 
 
 def test_device_bank_keeps_the_host_sign_of_zero():
@@ -318,7 +319,7 @@ def test_device_bank_keeps_the_host_sign_of_zero():
     kernels.reset_launch_counts()
     res = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
     assert kernels.BANK_BUILDS == {"device": 1, "host": 0}
-    want = port_encode.build_domains_host(sig, 1024, 4, 1)
+    want = build_domains_host(sig, 1024, 4, 1)
     neg_zero = (want == 0) & np.signbit(want)
     assert neg_zero[0, 0] and neg_zero.sum() == 1
     np.testing.assert_array_equal(res[1].view(np.uint32), want.view(np.uint32))
@@ -336,7 +337,7 @@ def test_packed_stack_builds_each_bank_on_the_device():
     for sig, r in zip(sigs, res):
         np.testing.assert_array_equal(
             r[1].view(np.uint32),
-            port_encode.build_domains_host(sig, 1024, 4, 1).view(np.uint32))
+            build_domains_host(sig, 1024, 4, 1).view(np.uint32))
 
 
 class _FakeMesh:
@@ -350,24 +351,35 @@ class _FakeMesh:
         return self.device
 
 
-@pytest.mark.parametrize("dtype,fast_mode,mesh,check,want", [
-    (np.int16, True, _FakeMesh("cuda"), 1, 1),
-    (np.int16, True, _FakeMesh("cuda"), 2, 2),
-    (np.float32, True, _FakeMesh("cuda"), 1, None),
-    (np.int16, False, _FakeMesh("cuda"), 1, None),
-    (np.int16, True, _FakeMesh("cpu"), 1, None),
-    (np.int16, True, _FakeMesh("cuda", size=2), 1, None),
-    (np.int16, True, _FakeMesh("cuda", multi_process=True), 1, None),
+@pytest.mark.parametrize("dtype,fast_mode,mesh,check,want,bank", [
+    (np.int16, True, _FakeMesh("cuda"), 1, 1, "device"),
+    (np.int16, True, _FakeMesh("cuda"), 2, 2, "device"),
+    (np.float32, True, _FakeMesh("cuda"), 1, None, "host"),
+    (np.int16, False, _FakeMesh("cuda"), 1, None, "device"),
+    (np.int16, True, _FakeMesh("cpu"), 1, None, "device"),
+    (np.int16, True, _FakeMesh("cuda", size=2), 1, None, "device"),
+    (np.int16, True, _FakeMesh("cuda", multi_process=True), 1, None, "device"),
 ], ids=["int16", "int16_vector8", "float", "no_fast_mode", "cpu", "two_cells",
         "two_processes"])
 def test_card_refit_engages_by_what_it_observes(monkeypatch, dtype, fast_mode, mesh, check,
-                                                want):
+                                                want, bank):
     """The refit runs on the card for an int16 stack under fast_mode on a
     one-cell CUDA mesh of this process, in the self-check's variant; every
-    other stack keeps the host refit (None)."""
+    other stack keeps the host refit (None). The same HostHalf builds the
+    bank of an int16 stack with bank_means ("device", its plain version on
+    these CPU samples) and of a float one on the host, whatever the mesh."""
     monkeypatch.setattr(refit, "refit_mode", lambda device, n: check)
     cfg = EncoderConfig(fast_mode=fast_mode)
     assert refit.card_refit_mode(np.dtype(dtype), cfg, mesh) == want
+    sig = bench.make_signal(0.25)
+    if dtype == np.float32:
+        sig = sig + np.float32(0.25)
+    raw_p, n_ranges, n_domains, _, _ = port_encode._prep_signal(sig, cfg)
+    assert raw_p.dtype == dtype
+    kernels.reset_launch_counts()
+    half = refit.HostHalf(torch.from_numpy(raw_p[None]), [(sig, raw_p, n_ranges, n_domains)],
+                          cfg, mesh)
+    assert half.mode == want and kernels.BANK_BUILDS[bank] == 1
 
 
 @pytest.mark.parametrize("host", ["bits_differ", "no_native_library"])
@@ -416,7 +428,7 @@ def test_host_refit_cases_count_under_host(case):
 def _card_refit_on_the_cpu(monkeypatch):
     """Route int16 stacks under fast_mode through the card refit's path
     with CPU tensors (collect_refit's plain version, no pinned copy)."""
-    monkeypatch.setattr(port_encode, "card_refit_mode",
+    monkeypatch.setattr(refit, "card_refit_mode",
                         lambda dtype, cfg, mesh: kernels.REFIT_FUSED
                         if dtype == np.int16 and cfg.fast_mode else None)
 
@@ -478,8 +490,8 @@ def test_card_refit_raises_for_a_code_past_the_bank():
         assert p[0].tobytes() == w.tobytes() and p[1] == int((w["idx"] >= 0).sum())
     sig = case.signals[2]
     with pytest.raises(IndexError, match="out of range"):
-        port_encode._finalize_encode(refit.CardRecords(*parts[2]), sig, EncoderConfig(),
-                                     len(parts[2][0]), len(sig), case.host_banks[2])
+        refit._card_result(parts[2], sig, EncoderConfig(), len(parts[2][0]),
+                           case.host_banks[2])
 
 
 def _assert_encode_bar(sig, J, T, cfg, max_diffs):
