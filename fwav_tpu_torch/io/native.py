@@ -1,12 +1,14 @@
 """ctypes binding of the native .fwav runtime (the entry points of
 fwav_tpu/io/native.py that the port uses: write, read, refit, collect,
 and the compact container's rans_encode, rans_decode, pack_bits and
-unpack_bits).
+unpack_bits), and of the port's own entry probe, prep_i16.
 
 The source is this package's native/fwavio.cpp, a byte-for-byte copy of
 the JAX package's fwav_tpu/native/fwavio.cpp (tests/test_torch_import.py
 holds the two equal). It is built with g++ at first use into this
-package's `_build/` directory. When no compiler or source is there, every entry
+package's `_build/` directory; native/prep.cpp, which the JAX package has
+not, into a library of its own beside it, so that either loads without the
+other. When no compiler or source is there, every entry
 point returns None (or False) and the callers run their numpy versions;
 this is host code and hides no device. The numpy refit does not give the
 native one's bytes: on the topk encode of bench.make_signal(1.0) the
@@ -28,9 +30,13 @@ import numpy as np
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "native" / "fwavio.cpp"
 _LIB = _PKG / "_build" / "libfwavio.so"
+_PREP_SRC = _PKG / "native" / "prep.cpp"
+_PREP_LIB = _PKG / "_build" / "libfwavprep.so"
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_prep_lib = None
+_prep_tried = False
 
 _ERRORS = {
     -1: "cannot open file",
@@ -44,16 +50,27 @@ _ERRORS = {
 }
 
 
-def _build() -> None:
-    _LIB.parent.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}.tmp")
-    base = ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(_SRC)]
+def _build(src: Path, lib: Path) -> None:
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    base = ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(src)]
     try:
         subprocess.run(base[:1] + ["-march=native"] + base[1:],
                        check=True, capture_output=True, timeout=120)
     except (OSError, subprocess.SubprocessError):
         subprocess.run(base, check=True, capture_output=True, timeout=120)
-    os.replace(tmp, _LIB)  # atomic: a concurrent build never sees a partial file
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+
+
+def _open(src: Path, lib: Path):
+    """`lib`, built from `src` where it is missing or older; None where
+    that fails."""
+    try:
+        if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+            _build(src, lib)
+        return ctypes.CDLL(str(lib))
+    except (OSError, subprocess.SubprocessError):
+        return None
 
 
 def _load():
@@ -62,11 +79,8 @@ def _load():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        try:
-            if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-                _build()
-            cdll = ctypes.CDLL(str(_LIB))
-        except (OSError, subprocess.SubprocessError):
+        cdll = _open(_SRC, _LIB)
+        if cdll is None:
             return None
 
         p, u32 = ctypes.c_void_p, ctypes.c_uint32
@@ -96,6 +110,22 @@ def _load():
         cdll.fwav_unpack_bits.argtypes = [p, i64, i64, i64, p]
         _lib = cdll
         return _lib
+
+
+def _load_prep():
+    global _prep_lib, _prep_tried
+    with _lock:
+        if _prep_lib is not None or _prep_tried:
+            return _prep_lib
+        _prep_tried = True
+        cdll = _open(_PREP_SRC, _PREP_LIB)
+        if cdll is None:
+            return None
+        cdll.fwav_prep_i16.restype = ctypes.c_int
+        cdll.fwav_prep_i16.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                                       ctypes.c_int64]
+        _prep_lib = cdll
+        return _prep_lib
 
 
 def _check(code: int):
@@ -258,3 +288,19 @@ def unpack_bits(buf: bytes, m: int, bits: int):
     if lib.fwav_unpack_bits(_ptr(data), len(data), int(m), int(bits), _ptr(out)) != 0:
         return None
     return out
+
+
+def prep_i16(signal: np.ndarray, row: np.ndarray):
+    """Native one-pass int16 probe (native/prep.cpp): True when every
+    sample of the C-contiguous float32 `signal` is int16-exact and the
+    int16 `row` (at least as long) holds them padded with zeros, False where
+    one is not (`row` is then not the samples), None when the library is
+    unavailable."""
+    if signal.dtype != np.float32 or not signal.flags.c_contiguous:
+        raise TypeError("prep_i16 takes C-contiguous float32 samples")
+    if row.dtype != np.int16 or not row.flags.c_contiguous or len(row) < len(signal):
+        raise ValueError("prep_i16: the row is no C-contiguous int16 row as long as the signal")
+    lib = _load_prep()
+    if lib is None:
+        return None
+    return lib.fwav_prep_i16(_ptr(signal), len(signal), _ptr(row), len(row)) == 1

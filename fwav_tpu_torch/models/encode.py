@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from ..config import EncoderConfig
+from ..io import native
 from ..ops.affine import affine_stats, batched_affine_match, row_mean
 from ..ops.domains import box_sums, build_bank, n_domains_for
 from ..ops.kernels import (
@@ -105,6 +106,11 @@ PACK3_MAX_ROWS = (1 << 24) - 1
 #: Files per packed stack: bounds device memory (B banks) while one launch
 #: of each kernel serves the whole stack.
 PACK_B_MAX = 16
+
+#: The transfer dtype that _as_i16_or_f32 chose, in files ("int16",
+#: "float32"), and its passes that ran the numpy spec ("fallback": the
+#: native library missing, or samples that are not C-contiguous float32).
+PREPS = {"int16": 0, "float32": 0, "fallback": 0}
 
 
 def pack3(code: torch.Tensor) -> torch.Tensor:
@@ -722,15 +728,37 @@ def _packed_cells(x, meta_np, lb: int, db: int, cfg: EncoderConfig, mesh):
     return out
 
 
-def _as_i16_or_f32(signal: np.ndarray):
-    """16-bit-exact content ships to the device as int16 (half the bytes);
-    the device casts it back to float32 exactly. Returns (src, in_i16)."""
+def _i16_spec(signal: np.ndarray, nb: int):
+    """The numpy decision and row, the executable spec of native/prep.cpp:
+    (the (nb,) int16 row padded with zeros, True) where every sample is
+    finite, |x| <= 32767 and whole, else (None, False)."""
     peak = float(np.max(np.abs(signal))) if len(signal) else 0.0
     if np.isfinite(peak) and peak <= 32767.0:
         as_i16 = signal.astype(np.int16)
         if np.array_equal(signal, as_i16):
-            return as_i16, True
-    return signal, False
+            row = np.zeros(nb, dtype=np.int16)
+            row[: len(signal)] = as_i16
+            return row, True
+    return None, False
+
+
+def _as_i16_or_f32(signal: np.ndarray, nb: int | None = None):
+    """16-bit-exact content ships to the device as int16 (half the bytes);
+    the device casts it back to float32 exactly. Returns (src, in_i16): an
+    int16 src is the row of `nb` samples (the signal's length by default)
+    padded with zeros, a float32 one the signal itself. Float32 samples take
+    the native pass (native/prep.cpp), which decides and writes the row in
+    one read; anything else, or a missing library, the numpy spec."""
+    nb = len(signal) if nb is None else nb
+    in_i16 = None
+    if signal.dtype == np.float32 and signal.flags.c_contiguous:
+        row = np.empty(nb, dtype=np.int16)
+        in_i16 = native.prep_i16(signal, row)
+    if in_i16 is None:
+        PREPS["fallback"] += 1
+        row, in_i16 = _i16_spec(signal, nb)
+    PREPS["int16" if in_i16 else "float32"] += 1
+    return (row, True) if in_i16 else (signal, False)
 
 
 def _range_split_factor(cfg: EncoderConfig, range_size: int, db: int, dp: int,
@@ -771,9 +799,10 @@ def _prep_signal(signal: np.ndarray, cfg: EncoderConfig, dp: int = 1, tp: int = 
     db = pad_to(dbk, tp * 256) if tp > 1 else dbk
     rsplit = _range_split_factor(cfg, range_size, db, dp, tp)
     lb = (pad_to(rb, rsplit * 256) if rsplit > 1 else rb) * range_size
-    src, in_i16 = _as_i16_or_f32(signal)
-    raw_p = np.zeros(nb, dtype=np.int16 if in_i16 else np.float32)
-    raw_p[:original_len] = src
+    raw_p, in_i16 = _as_i16_or_f32(signal, nb)
+    if not in_i16:
+        raw_p = np.zeros(nb, dtype=np.float32)
+        raw_p[:original_len] = signal
     return raw_p, n_ranges, n_domains, lb, db
 
 
@@ -790,7 +819,7 @@ def _encode_stack(files, lb: int, db: int, cfg: EncoderConfig, mesh: Mesh,
     its `meta`. The enqueue of the whole program, the host half's start
     before it and its card refit behind it hold DEVICE_LOCK. Returns one
     result per file."""
-    raw_np = np.stack([f[1] for f in files])
+    raw_np = files[0][1][None] if len(files) == 1 else np.stack([f[1] for f in files])
     n_domains = [f[3] for f in files]
     meta_np = _stack_counts([len(f[0]) for f in files], [f[2] for f in files], n_domains)
     _check_counts(cfg, lb, db, n_domains)

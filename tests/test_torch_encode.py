@@ -34,11 +34,13 @@ from fwav_tpu.models.encode import prune_bank as jax_prune
 from fwav_tpu.ops.domains import box_sums as jax_box_sums
 from fwav_tpu.utils.metrics import compute_snr
 from fwav_tpu_torch.config import EncoderConfig
+from fwav_tpu_torch.io import native as port_native
 from fwav_tpu_torch.models import encode as port_encode
 from fwav_tpu_torch.models import refit
 from fwav_tpu_torch.ops import kernels
 from fwav_tpu_torch.ops.domains import build_domains_host
 from fwav_tpu_torch.parallel import Mesh, compress_audio_sharded
+from fwav_tpu_torch.utils.buckets import bucket
 from fwav_tpu_torch.utils.trace import collect_phases
 from native_libs import ensure_native_libraries
 
@@ -289,7 +291,7 @@ def test_integer_samples_build_the_bank_as_the_device_does(monkeypatch, dtype):
     got = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
     assert kernels.BANK_BUILDS == {"device": 1, "host": 0}
     with monkeypatch.context() as m:
-        m.setattr(port_encode, "_as_i16_or_f32", lambda s: (s, False))
+        m.setattr(port_encode, "_as_i16_or_f32", lambda s, nb=None: (s, False))
         want = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
     assert kernels.BANK_BUILDS == {"device": 1, "host": 1}
     assert not any(kernels.LAUNCHES.values())
@@ -308,6 +310,119 @@ def test_float_samples_build_the_bank_on_the_host(speechlike):
     np.testing.assert_array_equal(
         res[1].view(np.uint32),
         build_domains_host(sig, 1024, 4, 1).view(np.uint32))
+
+
+def _i16_valued(n: int) -> np.ndarray:
+    """n int16 sample values as float32, the full range but -32768 among them."""
+    rng = np.random.default_rng(n)
+    return np.clip(np.round(rng.standard_normal(n) * 9000), -32767, 32767).astype(np.float32)
+
+
+def _with(n: int, at, value) -> np.ndarray:
+    sig = _i16_valued(n)
+    sig[at] = value
+    return sig
+
+
+# case -> (the caller's samples, whether they ship as int16)
+PROBE_CASES = {
+    "nan": (lambda: _with(9000, 4500, np.nan), False),
+    "+inf": (lambda: _with(9000, 4500, np.inf), False),
+    "-inf": (lambda: _with(9000, 4500, -np.inf), False),
+    "-32768": (lambda: _with(9000, 4500, -32768.0), False),
+    "32767": (lambda: _with(9000, [0, 4500, 8999], 32767.0), True),
+    "32767.5": (lambda: _with(9000, 4500, 32767.5), False),
+    "half_first": (lambda: _with(9000, 0, 0.5), False),
+    "half_last": (lambda: _with(9000, 8999, 0.5), False),
+    "-0.0": (lambda: _with(9000, slice(100, 700), -0.0), True),
+    "length_1": (lambda: _i16_valued(1), True),
+    "length_2x4096": (lambda: _i16_valued(2 * 4096), True),
+    "length_2x4096_plus_1": (lambda: _i16_valued(2 * 4096 + 1), True),
+    "half_past_2x4096": (lambda: _with(2 * 4096 + 1, 2 * 4096, 0.5), False),
+    "float64_caller": (lambda: _i16_valued(9000).astype(np.float64), True),
+    "float64_caller_fraction": (lambda: _i16_valued(9000).astype(np.float64) + 0.25, False),
+    "int16_caller": (lambda: _i16_valued(9000).astype(np.int16), True),
+    "int16_caller_-32768": (lambda: _with(9000, 10, -32768.0).astype(np.int16), False),
+}
+
+
+@pytest.mark.parametrize("case", list(PROBE_CASES))
+def test_native_probe_equals_the_numpy_spec(monkeypatch, case):
+    """The native one-pass probe (native/prep.cpp) and its numpy spec give
+    the same decision, dtype and padded row on the samples as
+    compress_audio_arrays hands them on (float32), and the decision is the
+    one each case states."""
+    make, want_i16 = PROBE_CASES[case]
+    sig = np.ascontiguousarray(np.asarray(make(), dtype=np.float32))
+    nb = bucket(len(sig), 4096)
+    before = dict(port_encode.PREPS)
+    got, got_i16 = port_encode._as_i16_or_f32(sig, nb)
+    assert port_encode.PREPS["fallback"] == before["fallback"]  # the native pass ran
+    with monkeypatch.context() as m:
+        m.setattr(port_native, "_load_prep", lambda: None)
+        want, spec_i16 = port_encode._as_i16_or_f32(sig, nb)
+    assert port_encode.PREPS["fallback"] == before["fallback"] + 1
+    assert got_i16 == spec_i16 == want_i16
+    assert got.dtype == want.dtype == (np.int16 if want_i16 else np.float32)
+    assert got.shape == want.shape == ((nb,) if want_i16 else sig.shape)
+    assert got.tobytes() == want.tobytes()
+    spec_row, spec_i16 = port_encode._i16_spec(sig, nb)
+    assert spec_i16 == want_i16
+    if want_i16:
+        assert spec_row.tobytes() == got.tobytes() and not got[len(sig):].any()
+    else:
+        assert got is sig
+
+
+@pytest.mark.parametrize("dp,tp,search", [(1, 1, "exact"), (2, 1, "exact"), (1, 2, "exact"),
+                                          (1, 2, "coarse"), (2, 2, "coarse")])
+@pytest.mark.parametrize("dtype", ["int16_valued", "float"])
+def test_prep_signal_pads_for_a_mesh_as_before(monkeypatch, dp, tp, search, dtype):
+    """_prep_signal's counts, buckets and padded row at every mesh padding:
+    the same from the native pass and from the numpy spec, and the row the
+    samples zero-padded to the 4096 bucket in the transfer dtype."""
+    sig = _i16_valued(70_000)
+    if dtype == "float":
+        sig = sig / 32768.0
+    cfg = EncoderConfig(search=search)
+    got = port_encode._prep_signal(sig, cfg, dp, tp)
+    with monkeypatch.context() as m:
+        m.setattr(port_native, "_load_prep", lambda: None)
+        want = port_encode._prep_signal(sig, cfg, dp, tp)
+    assert got[1:] == want[1:]
+    assert got[0].dtype == want[0].dtype and got[0].tobytes() == want[0].tobytes()
+    nb = bucket(len(sig), 4096)
+    row = np.zeros(nb, dtype=np.int16 if dtype == "int16_valued" else np.float32)
+    row[: len(sig)] = sig
+    assert got[0].dtype == row.dtype and got[0].tobytes() == row.tobytes()
+
+
+@pytest.mark.parametrize("case,want", [
+    ("int16_valued", {"int16": 1, "float32": 0, "fallback": 0}),
+    ("unit_floats", {"int16": 0, "float32": 1, "fallback": 0}),
+    ("with_-32768", {"int16": 0, "float32": 1, "fallback": 0}),
+    ("no_library", {"int16": 1, "float32": 0, "fallback": 1}),
+])
+def test_preps_counts_the_transfer_dtype(monkeypatch, case, want):
+    """PREPS counts each file by the dtype it ships in, and the passes that
+    ran the numpy spec; without the native library the encode's records
+    and bank are the same bytes."""
+    sig = bench.make_signal(1.5)
+    if case == "unit_floats":
+        sig = sig / 32768.0
+    elif case == "with_-32768":
+        sig[777] = -32768.0
+    before = dict(port_encode.PREPS)
+    with monkeypatch.context() as m:
+        if case == "no_library":
+            m.setattr(port_native, "_load_prep", lambda: None)
+        got = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
+    assert {k: port_encode.PREPS[k] - before[k] for k in want} == want
+    if case == "no_library":
+        want_res = port.compress_audio_arrays(sig, 44100, 2, device="cpu")
+        np.testing.assert_array_equal(got[0].view(np.uint8), want_res[0].view(np.uint8))
+        np.testing.assert_array_equal(got[1].view(np.uint32), want_res[1].view(np.uint32))
+        assert tuple(got[2:]) == tuple(want_res[2:])
 
 
 def test_device_bank_keeps_the_host_sign_of_zero():
